@@ -1,0 +1,302 @@
+"""Batched multi-start calibration: float32 search + float64 LM polish.
+
+Port of the JAX package's ``calibration/calibrator.py`` main path
+(``calibrate_batch_mixed`` with ``search_impl="pallas"``,
+``polish_impl="pallas"``): the port has one engine.
+
+  * Search (``calibrate_batch``): every (surface, start) lane runs the
+    batched flat L-BFGS in float32 on the K2 value-and-grad kernel; the
+    winner is repriced with K1<float>.
+  * Polish (``calibrate_batch_mixed``): every start is polished by the
+    batched Levenberg–Marquardt, with float64 residuals priced by
+    K1<double> and the float32 Jacobian from K3; the winner is picked on
+    the polished loss. With at least ``polish_compact_min_lanes`` lanes the
+    polish runs a short stage A, then compacted waves that continue only
+    the lanes still unconverged and still able to win.
+
+Inputs may be tensors or arrays; ``device`` (default: the device of
+``market_prices`` if it is a tensor, else the CPU) is where the
+calibration runs. On a CUDA device every pricing call launches a kernel;
+on the CPU the kernels' plain PyTorch versions run.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.double_heston import DHParams
+from ..ops.cos_kernel import price_surfaces
+from ..ops.lbfgs_batched import lbfgs_minimize_batched
+from ..ops.levenberg_marquardt import LMResult, lm_minimize_batched
+from ..ops.loss_kernel import (make_batch_residual_jacobian,
+                               make_batch_value_and_grad)
+from ..utils.config import CalibrationConfig, LMConfig, validate_calibration
+from .initial_guess import initial_guesses
+from .loss import residuals_from_prices
+from .transforms import transform
+
+
+class BatchCalibration(NamedTuple):
+    """Output of a batch of multi-start calibrations (leading axis B)."""
+    x: torch.Tensor              # winner unconstrained params [B, 13]
+    params: torch.Tensor         # winner constrained params [B, 13]
+    loss: torch.Tensor           # winner loss [B]
+    model_prices: torch.Tensor   # surface repriced at the winner [B, n_opt]
+    iterations: torch.Tensor     # winner's iterations [B]
+    n_evals: torch.Tensor        # objective evaluations [B]
+    converged: torch.Tensor      # winner converged flag [B]
+    per_start_loss: torch.Tensor  # every start's final loss [B, S]
+    per_start_x: torch.Tensor    # every start's iterate [B, S, 13], always set
+
+
+# Default polish: LM on the residual vector (the JAX package's POLISH_LM).
+POLISH_LM = LMConfig(maxiter=80, ftol=1e-15, gtol=1e-11, cost_target=1e-10)
+
+# (live lanes, padded lanes) of each compacted wave of the most recent
+# calibrate_batch_mixed call; empty when the polish ran in one stage.
+WAVE_LANES: List[Tuple[int, int]] = []
+
+
+def _inputs(spots, strikes, maturities, is_call, market_prices, dtype,
+            device):
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return (f(spots), f(strikes), f(maturities),
+            torch.as_tensor(is_call, dtype=torch.bool, device=device),
+            f(market_prices))
+
+
+def _device_of(market_prices, device):
+    if device is not None:
+        return torch.device(device)
+    if isinstance(market_prices, torch.Tensor):
+        return market_prices.device
+    return torch.device("cpu")
+
+
+def _winner(f: torch.Tensor):
+    """Non-finite losses masked to +inf; first argmin per surface."""
+    masked = torch.where(torch.isfinite(f), f, torch.full_like(f, math.inf))
+    return masked, torch.argmin(masked, dim=-1)
+
+
+def _take(a: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    return a[torch.arange(a.shape[0], device=a.device), win]
+
+
+def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
+                    market_prices,
+                    generator: Optional[torch.Generator] = None,
+                    config: CalibrationConfig = CalibrationConfig(),
+                    n_starts: int = 3, x0=None,
+                    device=None) -> BatchCalibration:
+    """Float32 multi-start search over ``[B, n_opt]`` surfaces.
+
+    All ``B * n_starts`` lanes run one batched L-BFGS whose value-and-grad
+    is K2; the winner (lowest finite loss) is repriced by K1<float>.
+    ``x0 [B, n_starts, 13]`` (unconstrained) replaces the generated starts;
+    otherwise they come from ``initial_guesses`` with ``generator`` (a
+    seed-0 CPU generator when None).
+    """
+    validate_calibration(config)
+    dev = _device_of(market_prices, device)
+    f32 = torch.float32
+    spots, strikes, maturities, is_call, mkt = _inputs(
+        spots, strikes, maturities, is_call, market_prices, f32, dev)
+    b = spots.shape[0]
+    if x0 is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        x0 = initial_guesses(n_starts, generator, spots, strikes, maturities,
+                             mkt)
+    else:
+        x0 = torch.as_tensor(x0, dtype=f32, device=dev)
+        if x0.shape != (b, n_starts, 13):
+            raise ValueError(f"x0 must be [{b}, {n_starts}, 13], got "
+                             f"{tuple(x0.shape)}")
+    rep = lambda a: torch.repeat_interleave(a, n_starts, dim=0)
+    vg = make_batch_value_and_grad(rep(spots), rep(strikes), rep(maturities),
+                                   rep(is_call), rep(mkt), rate, config)
+    res = lbfgs_minimize_batched(vg, x0.reshape(b * n_starts, 13),
+                                 config.lbfgs)
+    shape2 = lambda a: a.reshape(b, n_starts, *a.shape[1:])
+    masked, win = _winner(shape2(res.f))
+    xs = shape2(res.x)
+    x_best = _take(xs, win)
+    params_vec = transform(x_best)
+    pc = config.pricer
+    model = price_surfaces(params_vec, spots, rate, strikes, maturities,
+                           is_call, n_terms=pc.n_terms, L=pc.trunc_L,
+                           q=pc.dividend_yield)
+    return BatchCalibration(
+        x=x_best, params=params_vec, loss=_take(masked, win),
+        model_prices=model,
+        iterations=_take(shape2(res.n_iters), win),
+        n_evals=_take(shape2(res.n_evals), win),
+        converged=(_take(shape2(res.converged), win)
+                   & torch.isfinite(_take(masked, win))),
+        per_start_loss=shape2(res.f), per_start_x=xs)
+
+
+def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
+                        lane_mkt, x0, lam0, config: CalibrationConfig,
+                        polish: LMConfig):
+    """Batched LM over flat lanes: float64 residuals from K1<double>, the
+    float32 Jacobian from K3. Lane tensors are float64 ``[L, ...]``."""
+    f32 = torch.float32
+    pc = config.pricer
+    n_opt = lane_mkt.shape[-1]
+
+    def residual_fn(x):
+        params = transform(x)
+        prices = price_surfaces(params, lane_spots, rate, lane_strikes,
+                                lane_mats, lane_call, n_terms=pc.n_terms,
+                                L=pc.trunc_L, q=pc.dividend_yield)
+        return residuals_from_prices(prices, DHParams.from_vector(params),
+                                     lane_mkt, config)
+
+    jac32 = make_batch_residual_jacobian(
+        lane_spots.to(f32), lane_strikes.to(f32), lane_mats.to(f32),
+        lane_call, lane_mkt.to(f32), rate, config)
+    res = lm_minimize_batched(residual_fn, x0, polish,
+                              jac_fn=lambda x: jac32(x.to(f32)), lam0=lam0)
+    params_vec = transform(res.x)
+    model = lane_mkt * (1.0 + res.r[:, :n_opt] * math.sqrt(n_opt))
+    return res, params_vec, model
+
+
+def _polish_starts_fused(spots, rate, strikes, maturities, is_call,
+                         market_prices, x0, config: CalibrationConfig,
+                         polish: LMConfig):
+    """Polish every start: ``x0 [B, S, 13]`` -> per-(surface, start)
+    results with leading ``[B, S]`` axes."""
+    b, s = x0.shape[:2]
+    rep = lambda a: torch.repeat_interleave(a, s, dim=0)
+    res, params_vec, model = _polish_lanes_fused(
+        rep(spots), rate, rep(strikes), rep(maturities), rep(is_call),
+        rep(market_prices), x0.reshape(b * s, 13), None, config, polish)
+    shape2 = lambda a: a.reshape(b, s, *a.shape[1:])
+    return LMResult(*map(shape2, res)), shape2(params_vec), shape2(model)
+
+
+def _polish_pricer_config(config: CalibrationConfig) -> CalibrationConfig:
+    """Polish-phase pricer: N = config.polish_n_terms COS terms."""
+    return dataclasses.replace(
+        config, pricer=dataclasses.replace(config.pricer,
+                                           n_terms=config.polish_n_terms))
+
+
+def _continue_unconverged(spots, rate, strikes, maturities, is_call,
+                          market_prices, res: LMResult, params_vec, model,
+                          polish_config: CalibrationConfig, polish: LMConfig,
+                          maxiter: int):
+    """One compacted wave: gather the (surface, start) lanes still
+    unconverged and within ``polish_continue_margin`` of their surface's
+    best polished loss, pad them to a power-of-two bucket of at least 32
+    (at most B * S), continue them for ``maxiter`` more LM iterations from
+    their damping (clipped to [lambda_init, 1e2]), and scatter the results
+    back (iteration and evaluation counts add up)."""
+    polish = dataclasses.replace(polish, maxiter=maxiter)
+    b, s = res.x.shape[:2]
+    conv = res.converged.cpu().numpy()
+    f = res.f.cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        best = np.nanmin(np.where(np.isfinite(f), f, np.nan), axis=1,
+                         keepdims=True)
+    matter = np.isfinite(f) & (f <= best * polish_config.polish_continue_margin)
+    idx = np.nonzero((~conv & matter).reshape(-1))[0]
+    if idx.size == 0:
+        return res, params_vec, model
+    n_pad = min(max(32, 1 << int(idx.size - 1).bit_length()), b * s)
+    pad_idx = np.concatenate(
+        [idx, np.full(n_pad - idx.size, idx[0], np.int64)])
+    dev = res.x.device
+    surf = torch.as_tensor(pad_idx // s, device=dev)
+    lanes = torch.as_tensor(pad_idx, device=dev)
+    live = torch.as_tensor(idx, device=dev)
+    WAVE_LANES.append((int(idx.size), int(n_pad)))
+
+    flat = lambda a: a.reshape(b * s, *a.shape[2:])
+    lam0 = torch.clamp(flat(res.lam)[lanes], polish.lambda_init, 1e2)
+    resB, paramsB, modelB = _polish_lanes_fused(
+        spots[surf], rate, strikes[surf], maturities[surf], is_call[surf],
+        market_prices[surf], flat(res.x)[lanes], lam0, polish_config, polish)
+
+    def put(whole, part):
+        out = flat(whole).clone()
+        out[live] = part[:idx.size]
+        return out.reshape(whole.shape)
+
+    def add(whole, part):
+        out = flat(whole).clone()
+        out[live] += part[:idx.size]
+        return out.reshape(whole.shape)
+
+    res = res._replace(
+        x=put(res.x, resB.x), f=put(res.f, resB.f),
+        grad=put(res.grad, resB.grad), r=put(res.r, resB.r),
+        n_iters=add(res.n_iters, resB.n_iters),
+        n_evals=add(res.n_evals, resB.n_evals),
+        converged=put(res.converged, resB.converged),
+        lam=put(res.lam, resB.lam))
+    return res, put(params_vec, paramsB), put(model, modelB)
+
+
+def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
+                          market_prices,
+                          generator: Optional[torch.Generator] = None,
+                          config: CalibrationConfig = CalibrationConfig(),
+                          n_starts: int = 3, polish: LMConfig = POLISH_LM,
+                          x0=None, device=None) -> BatchCalibration:
+    """Mixed-precision batch calibration: float32 multi-start search, then
+    a float64 LM polish of every start, winner picked on the polished loss.
+
+    The search prices at ``config.search_n_terms`` with at most
+    ``config.search_maxeval`` evaluations per lane; the polish prices at
+    ``config.polish_n_terms``. ``iterations`` adds the search winner's
+    iterations to the polished winner's; ``n_evals`` adds the polish
+    evaluations of all starts; ``converged`` is the polished winner's flag;
+    ``per_start_x`` holds every polished start (its winner row equals
+    ``x``). ``WAVE_LANES`` records the compacted waves.
+    """
+    validate_calibration(config, polish)
+    dev = _device_of(market_prices, device)
+    search_config = dataclasses.replace(
+        config,
+        pricer=dataclasses.replace(config.pricer,
+                                   n_terms=config.search_n_terms),
+        lbfgs=dataclasses.replace(config.lbfgs,
+                                  maxeval=config.search_maxeval))
+    out32 = calibrate_batch(spots, rate, strikes, maturities, is_call,
+                            market_prices, generator, search_config,
+                            n_starts, x0, dev)
+
+    WAVE_LANES.clear()
+    f64 = torch.float64
+    spots, strikes, maturities, is_call, mkt = _inputs(
+        spots, strikes, maturities, is_call, market_prices, f64, dev)
+    polish_config = _polish_pricer_config(config)
+    b = spots.shape[0]
+    compact = b * n_starts >= config.polish_compact_min_lanes
+    stage_a = (dataclasses.replace(polish,
+                                   maxiter=config.polish_stage_a_maxiter)
+               if compact else polish)
+    res, params_vec, model = _polish_starts_fused(
+        spots, rate, strikes, maturities, is_call, mkt,
+        out32.per_start_x.to(f64), polish_config, stage_a)
+    if compact:
+        for wave_iters in config.polish_wave_budgets:
+            res, params_vec, model = _continue_unconverged(
+                spots, rate, strikes, maturities, is_call, mkt, res,
+                params_vec, model, polish_config, polish, wave_iters)
+    masked, win = _winner(res.f)
+    return BatchCalibration(
+        x=_take(res.x, win), params=_take(params_vec, win),
+        loss=_take(masked, win), model_prices=_take(model, win),
+        iterations=out32.iterations + _take(res.n_iters, win),
+        n_evals=out32.n_evals + res.n_evals.sum(dim=-1, dtype=torch.int32),
+        converged=_take(res.converged, win),
+        per_start_loss=masked, per_start_x=res.x)

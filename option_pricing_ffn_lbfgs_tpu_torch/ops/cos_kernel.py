@@ -1,0 +1,78 @@
+"""K1: batched COS surface pricing, float32 and float64.
+
+``price_surfaces`` prices ``[B, n_opt]`` (surface, option) rows under
+per-surface parameters. On a CUDA tensor it launches the hand-written
+kernel ``csrc/cos_price.cu`` (one warp per row, the N COS terms strided
+over the lanes, a shuffle reduction); on a CPU tensor it runs the plain
+PyTorch version, ``price_surfaces_plain`` (the batched ``price_options``).
+There is no fallback between the two: a CUDA tensor either launches the
+kernel or raises.
+
+Replaces ``option_pricing_ffn_lbfgs_tpu/ops/cos_pallas.py::
+price_surfaces_pallas`` (float32 only there). On the calibration path
+K1<double> prices the LM polish residuals and K1<float> reprices the search
+winner.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.double_heston import DHParams, price_options
+from . import kernel_build
+
+# Launches of each instantiation, counted where the kernel is launched.
+LAUNCHES = {"cos_price_f32": 0, "cos_price_f64": 0}
+
+_ENTRY = {torch.float32: "cos_price_f32", torch.float64: "cos_price_f64"}
+
+
+def price_surfaces_plain(params, spots, rate, strikes, maturities, is_call,
+                         n_terms: int = 128, L: float = 10.0, q: float = 0.0):
+    """Plain PyTorch K1: ``price_options`` batched over surfaces."""
+    return price_options(DHParams.from_vector(params), spots, rate, strikes,
+                         maturities, is_call, n_terms=n_terms, L=L, q=q)
+
+
+# params, spots, strikes, mats, is_call, out; rate, q, L; n_rows, n_opt,
+# n_terms; stream
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 3
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def price_surfaces(params, spots, rate, strikes, maturities, is_call,
+                   n_terms: int = 128, L: float = 10.0, q: float = 0.0):
+    """Price ``[B, n_opt]`` options; ``params [B, 13]``, ``spots [B]``,
+    scalar ``rate``, ``is_call`` bool. Computes in ``params.dtype``
+    (float32 or float64) and returns ``[B, n_opt]``."""
+    if params.device.type == "cpu":
+        return price_surfaces_plain(params, spots, rate, strikes, maturities,
+                                    is_call, n_terms, L, q)
+    dt, dev = params.dtype, params.device
+    if dev.type != "cuda" or dt not in _ENTRY:
+        raise ValueError(f"K1 takes float32/float64 CUDA tensors, got {dt} "
+                         f"on {dev}")
+    b, n_opt = strikes.shape
+    if params.shape != (b, 13) or spots.shape != (b,):
+        raise ValueError(f"shape mismatch: params {tuple(params.shape)}, "
+                         f"spots {tuple(spots.shape)}, strikes {(b, n_opt)}")
+    ins = [params, spots, strikes, maturities]
+    for t in ins:
+        if t.dtype != dt or t.device != dev:
+            raise ValueError("K1 inputs must share dtype and device")
+    if is_call.dtype != torch.bool or maturities.shape != strikes.shape \
+            or is_call.shape != strikes.shape:
+        raise ValueError("is_call must be a bool tensor shaped like strikes")
+    ins = [t.contiguous() for t in ins] + [is_call.contiguous()]
+    out = torch.empty((b, n_opt), dtype=dt, device=dev)
+    if b * n_opt == 0:
+        return out
+    entry = _ENTRY[dt]
+    err = kernel_build.entry("cos_price", entry, _ARGTYPES)(
+        *(t.data_ptr() for t in ins), out.data_ptr(),
+        float(rate), float(q), float(L), b * n_opt, n_opt, n_terms,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernel_build.check(err, entry)
+    LAUNCHES[entry] += 1
+    return out
