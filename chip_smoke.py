@@ -15,15 +15,33 @@ Phases:
      calibrate_batch_mixed with 3 starts, chained and timed with CUDA
      events; launch counts of every kernel on that run;
   7. the slice, compacted: 512 surfaces x 3 starts, so the polish waves run;
-  8. each kernel's time against its plain version at the slice's shapes.
+  8. each kernel's time against its plain version at the slice's shapes;
+  9. the generator: generate_dataset for 5000 surfaces at float64
+     (K1<double>, N = 128) and with use_pallas (K1<float>), checked against
+     the plain pricer, the Feller cap, the ranges and the noise;
+ 10. the shipped surrogate: predict_x on 512 surfaces, card against CPU;
+ 11. K2 at the hybrid's N = 128 (1024 lanes) and K2<double> (15 and 1536
+     lanes) against autograd of the plain loss, then timed;
+ 12. the hybrid: hybrid_calibrate_batch_mixed on 512 noiseless surfaces
+     (every surface must beat its FFN-only error, mean <= 0.03 %);
+ 13. the entry points through cli.main: demo, generate, calibrate (float32
+     and --f64), benchmark, compare --n-eval 10.
 
-Any failure exits non-zero. The last line is the JSON device record; the
-line before it is the per-kernel JSON record.
+Each main-path run (phases 6, 9, 12, 13) is driven with the launch counts
+set to 0 just before it and read just after; every kernel it should run
+must have launched. The per-kernel record's "launches" is the sum over
+those runs. Any failure exits non-zero. The last line is the JSON device
+record; the line before it is the per-kernel JSON record.
 """
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,9 +63,10 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
     import option_pricing_ffn_lbfgs_tpu_torch as port
+    from option_pricing_ffn_lbfgs_tpu_torch import cli
     from option_pricing_ffn_lbfgs_tpu_torch.calibration import calibrator
     from option_pricing_ffn_lbfgs_tpu_torch.calibration.initial_guess import (
-        initial_guesses)
+        GUESS0, initial_guesses)
     from option_pricing_ffn_lbfgs_tpu_torch.calibration.loss import (
         make_loss_fn, make_residual_fn)
     from option_pricing_ffn_lbfgs_tpu_torch.calibration.transforms import (
@@ -56,14 +75,37 @@ def main():
         PARAM_NAMES, DHParams)
     from option_pricing_ffn_lbfgs_tpu_torch.ops import (
         cos_kernel, kernel_build, loss_kernel)
+    from option_pricing_ffn_lbfgs_tpu_torch.data.synthetic import (
+        RANGE_HI, RANGE_LO)
     from option_pricing_ffn_lbfgs_tpu_torch.utils.config import (
-        CalibrationConfig, PricerConfig)
+        CalibrationConfig, GeneratorConfig, PricerConfig)
     from option_pricing_ffn_lbfgs_tpu_torch.utils.timing import (
         CudaTimer, cuda_time_ms)
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
     record = {}   # kernel name -> JSON fields
+    path_launches = {}   # kernel name -> launches summed over main paths
+    path_launches_last = {}   # the counts of the most recent main path
+
+    def drive(label, fn, expect):
+        """Run one main path with the launch counts zeroed just before and
+        read just after; every kernel in ``expect`` must have launched."""
+        for counts in (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES}
+        print(f"[{label}] launches: {got}")
+        missing = [k for k in expect if got[k] == 0]
+        check(not missing, f"{label}: kernels {missing} of the path did "
+              "not launch")
+        for k, v in got.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        path_launches_last.clear()
+        path_launches_last.update(got)
+        return out
 
     # ---------------------------------------------------------- 1 device --
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -198,8 +240,8 @@ def main():
                 mats[keep].to(f32), call[keep], mkt[keep].to(f32),
                 x[keep].to(f32))
 
-    def plain_vg(spots, strikes, mats, call, mkt, x):
-        loss_fn = make_loss_fn(spots, 0.03, strikes, mats, call, mkt, cfg64)
+    def plain_vg(spots, strikes, mats, call, mkt, x, cfg=cfg64):
+        loss_fn = make_loss_fn(spots, 0.03, strikes, mats, call, mkt, cfg)
         xr = x.detach().requires_grad_(True)
         loss = loss_fn(xr)
         grad, = torch.autograd.grad(loss.sum(), xr)
@@ -295,26 +337,22 @@ def main():
     sets = [problem_set(5, 2026 + i)[:2] for i in range(6)]
     calibrate(sets[0][0], 0)           # warm-up: first launches, allocator
     torch.cuda.synchronize()
-    for counts in (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    t0 = time.perf_counter()
-    with CudaTimer() as timer:
-        outs = [calibrate(args, i) for i, (args, _) in enumerate(sets)]
-    host_s = time.perf_counter() - t0
-    launches = {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES}
+
+    def bench_twin():
+        t0 = time.perf_counter()
+        with CudaTimer() as timer:
+            outs = [calibrate(args, i) for i, (args, _) in enumerate(sets)]
+        return outs, timer.ms, time.perf_counter() - t0
+    outs, twin_ms, host_s = drive(
+        6, bench_twin,
+        ["cos_price_f32", "cos_price_f64", "cos_vg_loss", "cos_vg_jac"])
     errs = np.concatenate([errors_pct(o, p) for o, (_, p) in zip(outs, sets)])
-    per_surface_ms = timer.ms / 30
+    per_surface_ms = twin_ms / 30
     print(f"[6] bench twin 6 x 5 surfaces: mean err {errs.mean():.5f} %, "
           f"max {errs.max():.5f} %; per surface {per_surface_ms:.2f} ms "
           f"(CUDA events), host {host_s / 30 * 1e3:.2f} ms")
     print(f"[6] per-surface error %: {np.round(errs, 5).tolist()}")
-    print(f"[6] launches: {launches}")
     check(errs.mean() <= 0.03, "bench twin mean error above 0.03 %")
-    check(all(v > 0 for v in launches.values()),
-          "a kernel of the path was not launched")
-    for k, v in launches.items():
-        record[k]["launches"] = v
 
     # -------------------------------------------------- 7 slice, compacted --
     # Checked: 512 Feller-capped surfaces (recoverable truths). Reported
@@ -362,6 +400,20 @@ def main():
           f"{calibrator.WAVE_LANES}, wall {timer.ms / 1e3:.2f} s")
 
     # ------------------------------------------ 8 kernel vs plain timing --
+    def kernel_vs_plain(label, name, kern, plain, keep):
+        """plain, kernel, kernel, plain: compare within one call; ``keep``
+        records the best of each in the kernel's JSON fields."""
+        p_a = cuda_time_ms(plain)
+        k_a = cuda_time_ms(kern)
+        k_b = cuda_time_ms(kern)
+        p_b = cuda_time_ms(plain)
+        ms, plain_ms = min(k_a, k_b), min(p_a, p_b)
+        print(f"{label} kernel {ms:.4f} ms ({k_a:.4f}, {k_b:.4f}), plain "
+              f"{plain_ms:.4f} ms ({p_a:.4f}, {p_b:.4f})")
+        if keep:
+            record[name]["ms"] = ms
+            record[name]["plain_ms"] = plain_ms
+
     for n_lanes in (15, 1536):
         spots, strikes, mats, call, mkt, x = lanes_problem(n_lanes, 11)
         p32 = transform(x)
@@ -389,25 +441,221 @@ def main():
                     p32, spots, 0.03, strikes, mats, call, mkt, 64)),
         }
         for name, (kern, plain) in cases.items():
-            # plain, kernel, kernel, plain: compare within one call
-            p_a = cuda_time_ms(plain)
-            k_a = cuda_time_ms(kern)
-            k_b = cuda_time_ms(kern)
-            p_b = cuda_time_ms(plain)
-            ms, plain_ms = min(k_a, k_b), min(p_a, p_b)
-            print(f"[8] {name} L={n_lanes} rows={n_lanes * 15} N=64: kernel "
-                  f"{ms:.4f} ms ({k_a:.4f}, {k_b:.4f}), plain {plain_ms:.4f} "
-                  f"ms ({p_a:.4f}, {p_b:.4f})")
-            if n_lanes == 15:
-                record[name]["ms"] = ms
-                record[name]["plain_ms"] = plain_ms
+            kernel_vs_plain(f"[8] {name} L={n_lanes} rows={n_lanes * 15} "
+                            "N=64:", name, kern, plain, keep=n_lanes == 15)
 
+    # ------------------------------------------------------- 9 generator --
+    gcfg = GeneratorConfig(n_samples=5000)
+    rate = gcfg.surface.rate
+    datasets = {}
+    for label, use_pallas, kernel, rtol in (
+            ("f64", False, "cos_price_f64", 1e-11),
+            ("use_pallas", True, "cos_price_f32", 8e-5)):
+        def run():
+            t0 = time.perf_counter()
+            ds = port.generate_dataset(torch.Generator(dev).manual_seed(9),
+                                       gcfg, dtype=f64, n_terms=128,
+                                       use_pallas=use_pallas, device=dev)
+            torch.cuda.synchronize()
+            return ds, time.perf_counter() - t0
+        ds, wall_s = drive(9, run, [kernel])
+        datasets[label] = ds
+        check(ds.model_prices.shape == (5000, 15)
+              and ds.model_prices.device.type == "cuda"
+              and bool(torch.isfinite(ds.market_prices).all()),
+              "generator output malformed")
+        head = slice(0, 256)
+        pdt = f64 if not use_pallas else f32
+        ref = cos_kernel.price_surfaces_plain(
+            ds.params[head].to(pdt), ds.spots[head].to(pdt), rate,
+            ds.strikes[head].to(pdt), ds.maturities[head].to(pdt),
+            torch.ones((256, 15), dtype=torch.bool, device=dev), n_terms=128)
+        rel = float(((ds.model_prices[head] - ref.to(f64)).abs()
+                     / ref.to(f64).abs()).max())
+        p = ds.params.cpu().numpy()
+        capped = all(np.all(p[:, s_] <= 0.90 * np.sqrt(2 * p[:, k_] * p[:, t_])
+                            * (1 + 1e-12)) for s_, k_, t_ in
+                     ((3, 1, 2), (8, 6, 7)))
+        in_range = bool(np.all(p >= RANGE_LO) and np.all(p <= RANGE_HI))
+        noise = (ds.market_prices / ds.model_prices - 1.0).cpu().numpy()
+        print(f"[9] generate_dataset {gcfg.n_samples} surfaces {label}: wall "
+              f"{wall_s * 1e3:.2f} ms (draws, host AR(1), K1 pricing, "
+              f"noise); first 256 vs plain max rel {rel:.3e} (rtol {rtol}); "
+              f"Feller-capped {capped}, in ranges {in_range}; noise mean "
+              f"{noise.mean():.3e}, std {noise.std():.5f}")
+        check(rel <= rtol, "generator prices disagree with the plain pricer")
+        check(capped and in_range, "generator truths outside the ranges or "
+              "above the Feller cap")
+        check(abs(noise.mean()) < 1e-3 and abs(noise.std() / 0.02 - 1) < 0.1,
+              "generator noise is not 2 %")
+
+    # ------------------------------------------------------- 10 surrogate --
+    surrogate = port.load_default_model()
+    ds = datasets["f64"]
+    mkt512, spots512 = ds.market_prices[:512], ds.spots[:512]
+    x_gpu = surrogate.predict_x(mkt512, spots512)
+    x_cpu = surrogate.predict_x(mkt512.cpu(), spots512.cpu())
+    ffn_rel = float(((x_gpu.cpu() - x_cpu).abs() / x_cpu.abs()).max())
+    fwd_ms = cuda_time_ms(lambda: surrogate.predict_x(mkt512, spots512))
+    print(f"[10] surrogate predict_x on 512 surfaces: card vs CPU max rel "
+          f"{ffn_rel:.3e} (rtol 1e-5); forward {fwd_ms:.4f} ms (features, "
+          f"scaling, 5 Linear + 4 BatchNorm, CUDA events)")
+    check(x_gpu.device.type == "cuda" and ffn_rel <= 1e-5,
+          "surrogate on the card disagrees with the CPU")
+
+    # ----------------------------------------------- 11 K2 at new shapes --
+    cfg128 = CalibrationConfig()
+    k2d_err = 0.0
+    record["cos_vg_loss_f64"] = {}
+    for label, n_lanes, dt, ftol, gtol in (("K2<float>", 1024, f32, 2e-4, 5e-3),
+                                           ("K2<double>", 15, f64, 1e-11, 1e-9),
+                                           ("K2<double>", 1536, f64, 1e-11,
+                                            1e-9)):
+        prob = [t.to(dt) if t.dtype != torch.bool else t
+                for t in lanes_problem(n_lanes, 31 + n_lanes)]
+        f_k, g_k = loss_kernel.make_batch_value_and_grad(
+            *prob[:5], 0.03, cfg128)(prob[5])
+        f_p, g_p = plain_vg(*prob, cfg=cfg128)
+        torch.cuda.synchronize()
+        frel = float(((f_k - f_p).abs() / f_p.abs()).max())
+        scale = g_p.abs().amax(-1, keepdim=True).clamp(min=1e-6)
+        gerr = float(((g_k - g_p) / scale).abs().max())
+        if dt == f64:
+            k2d_err = max(k2d_err, float((g_k - g_p).abs().max()))
+        print(f"[11] {label} L={n_lanes} N=128: loss max rel {frel:.3e} "
+              f"(rtol {ftol}), grad/rowmax max abs {gerr:.3e} (atol {gtol})")
+        check(f_k.dtype == dt and frel <= ftol and gerr <= gtol,
+              f"{label} disagrees with autograd")
+        p_, s_, k_, m_, c_, mk_ = (transform(prob[5]), *prob[:5])
+        kernel_vs_plain(
+            f"[11] {label} L={n_lanes} rows={n_lanes * 15} N=128:",
+            "cos_vg_loss_f64",
+            lambda: loss_kernel.rows_value_and_grad(p_, s_, 0.03, k_, m_, c_,
+                                                    mk_, 128),
+            lambda: loss_kernel.rows_value_and_grad_plain(
+                p_, s_, 0.03, k_, m_, c_, mk_, 128),
+            keep=(dt == f64 and n_lanes == 15))
+    record["cos_vg_loss_f64"]["max_abs_err"] = k2d_err
+
+    # ---------------------------------------------------------- 12 hybrid --
+    n_h = 512
+    h_args = (ds.spots[:n_h], 0.03, ds.strikes[:n_h], ds.maturities[:n_h],
+              torch.ones((n_h, 15), dtype=torch.bool, device=dev),
+              ds.model_prices[:n_h])
+    port.hybrid_calibrate_batch_mixed(        # warm-up at 8 surfaces
+        surrogate, *(a[:8] if torch.is_tensor(a) else a for a in h_args))
+
+    def hybrid():
+        with CudaTimer() as timer:
+            out = port.hybrid_calibrate_batch_mixed(surrogate, *h_args)
+        return out, timer.ms
+    out, hyb_ms = drive(12, hybrid, ["cos_price_f32", "cos_price_f64",
+                                     "cos_vg_loss", "cos_vg_jac"])
+    truth = h_args[-1]
+    h_err = ((out.model_prices - truth).abs() / truth).mean(-1).cpu().numpy()
+    ffn_p = surrogate.predict_params(truth, h_args[0]).to(f64)
+    ffn_model = cos_kernel.price_surfaces(ffn_p, h_args[0], 0.03, h_args[2],
+                                          h_args[3], h_args[4])
+    ffn_err = ((ffn_model - truth).abs() / truth).mean(-1).cpu().numpy()
+    h_err, ffn_err = h_err * 100, ffn_err * 100
+    print(f"[12] hybrid {n_h} noiseless surfaces, default config: mean err "
+          f"{h_err.mean():.5f} %, max {h_err.max():.5f} %; FFN-only mean "
+          f"{ffn_err.mean():.5f} %; surfaces beating FFN-only "
+          f"{int((h_err < ffn_err).sum())}/{n_h}; wall {hyb_ms:.2f} ms "
+          f"({hyb_ms / n_h:.3f} ms/surface, CUDA events); refine iterations "
+          f"(winner, mean) {float(out.iterations.float().mean()):.1f}")
+    check(out.model_prices.shape == (n_h, 15)
+          and bool(torch.isfinite(out.model_prices).all())
+          and out.per_start_x.shape == (n_h, 2, 13),
+          "hybrid output malformed")
+    check(bool(np.all(h_err < ffn_err)), "a surface misses its FFN-only error")
+    check(h_err.mean() <= 0.03, "hybrid mean error above 0.03 %")
+    # Where the hybrid's time goes: its three stages timed alone.
+    fwd = cuda_time_ms(lambda: surrogate.predict_x(truth.to(f32),
+                                                   h_args[0].to(f32)),
+                       repeats=5, warmup=1)
+    x0 = torch.stack([surrogate.predict_x(truth.to(f32), h_args[0].to(f32)),
+                      calibrator.inverse_transform(torch.tensor(
+                          GUESS0, dtype=f32, device=dev)).expand(n_h, 13)],
+                     dim=1)
+    refine_cfg = dataclasses.replace(
+        cfg128, lbfgs=dataclasses.replace(cfg128.lbfgs, maxiter=40))
+    k2_before = loss_kernel.LAUNCHES["cos_vg_loss"]
+    with CudaTimer() as t_ref:
+        port.calibrate_batch(*h_args, None, refine_cfg, 2, x0, dev)
+    trips = loss_kernel.LAUNCHES["cos_vg_loss"] - k2_before
+    print(f"[12] hybrid breakdown: FFN forward {fwd:.3f} ms, float32 refine "
+          f"({2 * n_h} lanes, N=128) {t_ref.ms:.2f} ms over {trips} L-BFGS "
+          f"trips "
+          f"({t_ref.ms / max(trips, 1):.3f} ms/trip), float64 polish and the "
+          f"rest {hyb_ms - fwd - t_ref.ms:.2f} ms; LM trips in the run "
+          f"{path_launches_last['cos_vg_jac']}")
+
+    # -------------------------------------------------- 13 entry points --
+    def cli_run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        print(f"[13] cli {' '.join(argv)}: exit {rc}")
+        return rc, buf.getvalue()
+
+    all4 = ["cos_price_f32", "cos_price_f64", "cos_vg_loss", "cos_vg_jac"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, text = drive(13, lambda: cli_run(["demo"]), ["cos_price_f32"])
+        parity = float(re.search(r"parity residual: (\S+)", text).group(1))
+        print("[13] " + text.strip().replace("\n", "\n[13] "))
+        check(rc == 0 and abs(parity) < 0.01, "demo failed")
+        data = os.path.join(tmp, "d.pkl")
+        rc, _ = drive(13, lambda: cli_run(["generate", "--n-samples", "16",
+                                           "--out", data]),
+                      ["cos_price_f32"])
+        check(rc == 0 and os.path.exists(data), "generate failed")
+        for f64_flag, kernels in (([], ["cos_vg_loss", "cos_price_f32"]),
+                                  (["--f64"], ["cos_vg_loss_f64",
+                                               "cos_price_f64"])):
+            rc, text = drive(13, lambda: cli_run(
+                [*f64_flag, "calibrate", "--data", data]), kernels)
+            res = json.loads(text)
+            print(f"[13] calibrate {' '.join(f64_flag) or 'float32'}: loss "
+                  f"{res['final_loss']:.4e}, mean rel error "
+                  f"{res['mean_rel_error_pct']:.5f} % (noisy market), "
+                  f"iterations {res['iterations']}, "
+                  f"{res['calibration_time_s']:.3f} s")
+            check(rc == 0 and res["success"], "calibrate failed")
+        bench_json = os.path.join(tmp, "bench.json")
+        rc, _ = drive(13, lambda: cli_run(["benchmark", "--out", bench_json]),
+                      ["cos_price_f32", "cos_vg_loss"])
+        with open(bench_json) as f:
+            bench = json.load(f)
+        print(f"[13] benchmark 5 surfaces float32 calibrate_batch: mean err "
+              f"{bench['statistics']['mean_error']:.5f} %, "
+              f"{bench['statistics']['mean_time']:.4f} s/surface")
+        check(rc == 0 and len(bench["pricing_errors"]) == 5,
+              "benchmark failed")
+        rc, text = drive(13, lambda: cli_run(["compare", "--n-eval", "10",
+                                              "--out-dir", tmp]), all4)
+        summary = json.loads(text[:text.rindex("}") + 1])
+        print(f"[13] compare --n-eval 10: {json.dumps(summary)}")
+        names = ("lbfgs_actual_results.json", "hybrid_actual_results.json",
+                 "COMPARISON_TABLE.txt")
+        check(rc == 0 and all(os.path.exists(os.path.join(tmp, n))
+                              for n in names), "compare wrote no artefacts")
+        check(summary["hybrid_mean_error_pct"] <= 0.03
+              and summary["lbfgs_mean_error_pct"] <= 0.03,
+              "compare: mean error above 0.03 %")
+
+    for name, n in path_launches.items():
+        record.setdefault(name, {})["launches"] = n
     src = "option_pricing_ffn_lbfgs_tpu_torch/csrc/"
     replaces = {
         "cos_price_f32": "option_pricing_ffn_lbfgs_tpu/ops/cos_pallas.py:143",
         "cos_price_f64": "option_pricing_ffn_lbfgs_tpu/ops/cos_pallas.py:143",
         "cos_vg_loss": "option_pricing_ffn_lbfgs_tpu/ops/loss_pallas.py:112",
         "cos_vg_jac": "option_pricing_ffn_lbfgs_tpu/ops/loss_pallas.py:112",
+        # No Pallas twin: JAX's float64 search is XLA autodiff of the loss
+        # (calibration/loss.py::make_loss_fn); K2's kernel is the TPU one.
+        "cos_vg_loss_f64":
+            "option_pricing_ffn_lbfgs_tpu/ops/loss_pallas.py:112",
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": src + ("cos_price.cu" if "price" in name

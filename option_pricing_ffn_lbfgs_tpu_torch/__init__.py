@@ -4,10 +4,60 @@ The JAX package ``option_pricing_ffn_lbfgs_tpu`` is the reference; this
 package mirrors its module layout and imports ``torch``, never ``jax``.
 Its kernels (``csrc/``) are built for the H100 (sm_90a) at first use; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version.
-"""
-from .models.double_heston import DHParams, price_options
-from .ops.cos_kernel import price_surfaces
-from .calibration.calibrator import calibrate_batch, calibrate_batch_mixed
 
-__all__ = ["DHParams", "price_options", "price_surfaces", "calibrate_batch",
-           "calibrate_batch_mixed"]
+Quick start::
+
+    import torch
+    from option_pricing_ffn_lbfgs_tpu_torch import (
+        DoubleHestonJumpCalibrator, hybrid_calibrate_batch_mixed,
+        load_default_model)
+
+    cal = DoubleHestonJumpCalibrator(spot, rate, market_options,
+                                     device="cuda")
+    result = cal.calibrate(maxiter=300, multi_start=3)
+"""
+from .models.double_heston import (
+    DHParams, PARAM_NAMES, char_fn, payoff_coefficients, price_options,
+    price_single, truncation_range)
+from .ops.cos_kernel import price_surfaces
+from .calibration.calibrator import (
+    BatchCalibration, DoubleHestonJumpCalibrator, calibrate_batch,
+    calibrate_batch_mixed, calibrate_surface, options_to_arrays)
+from .calibration.loss import feller_penalty, make_loss_fn, surface_loss
+from .calibration.transforms import (
+    inverse_transform, transform, transform_to_params)
+from .calibration.initial_guess import initial_guesses
+from .ops.lbfgs_batched import LBFGSResult, lbfgs_minimize_batched
+from .utils.config import (
+    CalibrationConfig, GeneratorConfig, LBFGSConfig, LMConfig, PricerConfig,
+    SurfaceSpec)
+from .utils.results import CalibrationResult, write_benchmark_json
+from .data.synthetic import (
+    SyntheticDataset, generate_dataset, load_dataset, save_dataset,
+    to_calibration_results)
+from .surrogate.features import extract_features
+from .surrogate.ffn import SurrogateFFN
+from .surrogate.hybrid import (
+    HybridResult, ffn_only_predict, hybrid_calibrate,
+    hybrid_calibrate_batch_mixed)
+from .surrogate.predict import load_default_model, make_predict_fn
+from .surrogate.train import TrainedSurrogate, load_surrogate, save_surrogate
+
+__all__ = [
+    "DHParams", "PARAM_NAMES", "char_fn", "payoff_coefficients",
+    "price_options", "price_single", "truncation_range", "price_surfaces",
+    "BatchCalibration", "DoubleHestonJumpCalibrator", "calibrate_batch",
+    "calibrate_batch_mixed", "calibrate_surface", "options_to_arrays",
+    "feller_penalty", "make_loss_fn", "surface_loss",
+    "inverse_transform", "transform", "transform_to_params",
+    "initial_guesses", "LBFGSResult", "lbfgs_minimize_batched",
+    "CalibrationConfig", "GeneratorConfig", "LBFGSConfig", "LMConfig",
+    "PricerConfig", "SurfaceSpec",
+    "CalibrationResult", "write_benchmark_json",
+    "SyntheticDataset", "generate_dataset", "load_dataset", "save_dataset",
+    "to_calibration_results",
+    "extract_features", "SurrogateFFN",
+    "HybridResult", "ffn_only_predict", "hybrid_calibrate",
+    "hybrid_calibrate_batch_mixed", "load_default_model", "make_predict_fn",
+    "TrainedSurrogate", "load_surrogate", "save_surrogate",
+]

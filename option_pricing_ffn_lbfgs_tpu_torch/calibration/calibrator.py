@@ -14,6 +14,11 @@ Port of the JAX package's ``calibration/calibrator.py`` main path
     polish runs a short stage A, then compacted waves that continue only
     the lanes still unconverged and still able to win.
 
+The single-surface API (``calibrate_surface``,
+``DoubleHestonJumpCalibrator``) runs the same batched engine on one
+surface at the dtype of its market prices: the L-BFGS value-and-grad is
+K2 at float32 or K2<double> at float64.
+
 Inputs may be tensors or arrays; ``device`` (default: the device of
 ``market_prices`` if it is a tensor, else the CPU) is where the
 calibration runs. On a CUDA device every pricing call launches a kernel;
@@ -23,21 +28,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, NamedTuple, Optional, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models.double_heston import DHParams
+from ..models.double_heston import PARAM_NAMES, DHParams
 from ..ops.cos_kernel import price_surfaces
 from ..ops.lbfgs_batched import lbfgs_minimize_batched
 from ..ops.levenberg_marquardt import LMResult, lm_minimize_batched
 from ..ops.loss_kernel import (make_batch_residual_jacobian,
                                make_batch_value_and_grad)
 from ..utils.config import CalibrationConfig, LMConfig, validate_calibration
+from ..utils.results import CalibrationResult
 from .initial_guess import initial_guesses
-from .loss import residuals_from_prices
-from .transforms import transform
+from .loss import loss_from_prices, residuals_from_prices
+from .transforms import inverse_transform, transform
 
 
 class BatchCalibration(NamedTuple):
@@ -92,20 +99,21 @@ def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
                     generator: Optional[torch.Generator] = None,
                     config: CalibrationConfig = CalibrationConfig(),
                     n_starts: int = 3, x0=None,
-                    device=None) -> BatchCalibration:
-    """Float32 multi-start search over ``[B, n_opt]`` surfaces.
+                    device=None,
+                    dtype: torch.dtype = torch.float32) -> BatchCalibration:
+    """Multi-start search over ``[B, n_opt]`` surfaces at ``dtype``
+    (float32, the search of ``calibrate_batch_mixed``; or float64).
 
     All ``B * n_starts`` lanes run one batched L-BFGS whose value-and-grad
-    is K2; the winner (lowest finite loss) is repriced by K1<float>.
-    ``x0 [B, n_starts, 13]`` (unconstrained) replaces the generated starts;
-    otherwise they come from ``initial_guesses`` with ``generator`` (a
-    seed-0 CPU generator when None).
+    is K2 at ``dtype``; the winner (lowest finite loss) is repriced by K1
+    at ``dtype``. ``x0 [B, n_starts, 13]`` (unconstrained) replaces the
+    generated starts; otherwise they come from ``initial_guesses`` with
+    ``generator`` (a seed-0 CPU generator when None).
     """
     validate_calibration(config)
     dev = _device_of(market_prices, device)
-    f32 = torch.float32
     spots, strikes, maturities, is_call, mkt = _inputs(
-        spots, strikes, maturities, is_call, market_prices, f32, dev)
+        spots, strikes, maturities, is_call, market_prices, dtype, dev)
     b = spots.shape[0]
     if x0 is None:
         if generator is None:
@@ -113,7 +121,7 @@ def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
         x0 = initial_guesses(n_starts, generator, spots, strikes, maturities,
                              mkt)
     else:
-        x0 = torch.as_tensor(x0, dtype=f32, device=dev)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
         if x0.shape != (b, n_starts, 13):
             raise ValueError(f"x0 must be [{b}, {n_starts}, 13], got "
                              f"{tuple(x0.shape)}")
@@ -300,3 +308,135 @@ def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
         n_evals=out32.n_evals + res.n_evals.sum(dim=-1, dtype=torch.int32),
         converged=_take(res.converged, win),
         per_start_loss=masked, per_start_x=res.x)
+
+
+def calibrate_surface(spot, rate: float, strikes, maturities, is_call,
+                      market_prices,
+                      generator: Optional[torch.Generator] = None,
+                      config: CalibrationConfig = CalibrationConfig(),
+                      n_starts: int = 3, x0=None,
+                      device=None) -> BatchCalibration:
+    """One surface ``[n_opt]``, ``n_starts`` L-BFGS solves with
+    ``config.lbfgs`` at ``config.pricer.n_terms`` COS terms, at the dtype
+    of ``market_prices``: a batch-of-one ``calibrate_batch``, so K2 (float32)
+    or K2<double> (float64) is the value-and-grad. ``x0 [n_starts, 13]``
+    replaces the generated starts. The result has no batch axis."""
+    mkt = torch.as_tensor(market_prices)
+    one = lambda a: torch.as_tensor(a)[None]
+    out = calibrate_batch(
+        torch.as_tensor(spot).reshape(1), rate, one(strikes), one(maturities),
+        one(is_call), mkt[None], generator, config, n_starts,
+        None if x0 is None else one(x0), device, dtype=mkt.dtype)
+    return BatchCalibration(*(a[0] for a in out))
+
+
+def surface_loss_k1(params: torch.Tensor, spots, rate, strikes, maturities,
+                    is_call, market_prices,
+                    config: CalibrationConfig) -> torch.Tensor:
+    """``[L]`` losses (``loss.py::surface_loss``) at constrained
+    ``params [L, 13]``, priced by K1 at the dtype of ``params``."""
+    pc = config.pricer
+    prices = price_surfaces(params, spots, rate, strikes, maturities, is_call,
+                            n_terms=pc.n_terms, L=pc.trunc_L,
+                            q=pc.dividend_yield)
+    return loss_from_prices(prices, DHParams.from_vector(params),
+                            market_prices, config)
+
+
+def options_to_arrays(market_options: List[Dict], dtype=np.float64):
+    """Convert the reference's list-of-dicts market format to arrays."""
+    strikes = np.array([o["strike"] for o in market_options], dtype)
+    maturities = np.array([o["maturity"] for o in market_options], dtype)
+    prices = np.array([o["price"] for o in market_options], dtype)
+    is_call = np.array(
+        [str(o.get("option_type", "call")).upper()[0] == "C"
+         for o in market_options])
+    return strikes, maturities, prices, is_call
+
+
+class DoubleHestonJumpCalibrator:
+    """The reference calibrator's class API (spot, risk_free_rate,
+    market_options list of {'strike', 'maturity', 'price', 'option_type'}
+    dicts; ``.calibrate(maxiter, multi_start)`` returning a
+    CalibrationResult), backed by ``calibrate_surface``.
+
+    ``dtype`` is float32 by default (the JAX package's default without x64)
+    or float64; ``device`` is where it runs. ``generator`` draws the
+    perturbed starts; every ``calibrate`` call starts from its state at
+    construction (a seed-0 CPU generator when None), as the JAX package
+    reuses its seed.
+    """
+
+    def __init__(self, spot: float, risk_free_rate: float,
+                 market_options: List[Dict],
+                 config: CalibrationConfig = CalibrationConfig(),
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 device="cpu"):
+        self.spot = spot
+        self.risk_free_rate = risk_free_rate
+        self.market_options = market_options
+        self.dtype = dtype
+        self.config = config
+        self.device = torch.device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self._gen_device = generator.device
+        self._gen_state = generator.get_state()
+        k, m, p, c = options_to_arrays(market_options)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        self.strikes, self.maturities, self.market_prices = t(k), t(m), t(p)
+        self.is_call = torch.as_tensor(c, device=self.device)
+        self.param_names = list(PARAM_NAMES)
+
+    def compute_loss(self, x) -> float:
+        """Loss at an unconstrained 13-vector (reference API parity)."""
+        params = transform(torch.as_tensor(x, dtype=self.dtype,
+                                           device=self.device))[None]
+        t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                      device=self.device)
+        return float(surface_loss_k1(
+            params, t([self.spot]), self.risk_free_rate, self.strikes[None],
+            self.maturities[None], self.is_call[None],
+            self.market_prices[None], self.config)[0])
+
+    def transform_params(self, x) -> Dict[str, float]:
+        vec = transform(torch.as_tensor(x, dtype=self.dtype))
+        return {n: float(v) for n, v in zip(PARAM_NAMES, vec)}
+
+    def inverse_transform_params(self, params: Dict[str, float]) -> np.ndarray:
+        vec = torch.tensor([params[n] for n in PARAM_NAMES], dtype=self.dtype)
+        return inverse_transform(vec).numpy()
+
+    def calibrate(self, maxiter: int = 300, multi_start: int = 3
+                  ) -> CalibrationResult:
+        """Run the multi-start calibration; returns the best result. The
+        wall time is taken after the device has finished."""
+        t0 = time.time()
+        cfg = dataclasses.replace(
+            self.config,
+            lbfgs=dataclasses.replace(self.config.lbfgs, maxiter=maxiter))
+        gen = torch.Generator(device=self._gen_device)
+        gen.set_state(self._gen_state)
+        out = calibrate_surface(
+            torch.tensor(self.spot, dtype=self.dtype), self.risk_free_rate,
+            self.strikes, self.maturities, self.is_call, self.market_prices,
+            gen, cfg, multi_start, device=self.device)
+        out = BatchCalibration(*(a.cpu().numpy() for a in out))
+        elapsed = time.time() - t0
+
+        success = bool(np.isfinite(out.loss))
+        params = {n: float(v) for n, v in zip(PARAM_NAMES, out.params)}
+        return CalibrationResult(
+            date="", spot=float(self.spot),
+            risk_free=float(self.risk_free_rate), parameters=params,
+            market_prices=self.market_prices.cpu().numpy(),
+            model_prices=out.model_prices,
+            market_options=self.market_options,
+            final_loss=float(out.loss),
+            calibration_time=elapsed,
+            success=success,
+            iterations=int(out.iterations),
+            message=("converged" if bool(out.converged)
+                     else "stopped (maxiter or line search)") if success
+                    else "All optimization starts failed")

@@ -41,6 +41,13 @@ def surface_loss(params: DHParams, spot, rate, strikes, maturities, is_call,
     """Per-lane relative MSE + Feller penalty, NaN-safe: ``[L]``."""
     model = _model_prices(params, spot, rate, strikes, maturities, is_call,
                           config)
+    return loss_from_prices(model, params, market_prices, config)
+
+
+def loss_from_prices(model, params: DHParams, market_prices,
+                     config: CalibrationConfig) -> torch.Tensor:
+    """Loss assembly shared by ``surface_loss`` and the K1-priced loss of
+    the calibrator's single-surface API: ``[L]``."""
     valid = torch.isfinite(model) & (model > 0.0)
     safe_model = torch.where(valid, model, market_prices)
     rel = (safe_model - market_prices) / market_prices

@@ -211,3 +211,22 @@ def price_options(params: DHParams, spot, rate, strikes, maturities, is_call,
     w = torch.where(k == 0, 0.5, 1.0).to(dt)
     series = torch.sum(terms * w, dim=-1)
     return torch.exp(-rate * taus[..., 0]) * series
+
+
+def price_single(params: DHParams, spot, strike, tau, rate, is_call=True,
+                 n_terms: int = 128, L: float = 10.0, q: float = 0.0):
+    """Price one option; returns a 0-d tensor in the dtype (float32 at
+    least) and on the device of ``strike``. Goes through
+    ``ops/cos_kernel.price_surfaces``, so on a CUDA tensor it launches K1
+    and on a CPU tensor it runs the plain pricer."""
+    from ..ops.cos_kernel import price_surfaces
+    strike = torch.as_tensor(strike)
+    dt = torch.promote_types(strike.dtype, torch.float32)
+    dev = strike.device
+    col = lambda v: torch.as_tensor(v, dtype=dt, device=dev).reshape(1, 1)
+    vec = torch.stack([torch.as_tensor(v, dtype=dt, device=dev).reshape(())
+                       for v in params])[None]
+    out = price_surfaces(vec, col(spot).reshape(1), rate, col(strike),
+                         col(tau), torch.tensor([[bool(is_call)]], device=dev),
+                         n_terms=n_terms, L=L, q=q)
+    return out[0, 0]

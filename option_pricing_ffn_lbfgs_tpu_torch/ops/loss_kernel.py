@@ -1,16 +1,18 @@
 """K2/K3: fused per-row COS price + weighted parameter gradient.
 
-One CUDA kernel (``csrc/cos_vg.cu``, float32, forward mode with 13
-tangents) serves the two consumers of the JAX package's
-``ops/loss_pallas.py``:
+One CUDA kernel (``csrc/cos_vg.cu``, forward mode with 13 tangents)
+serves the two consumers of the JAX package's ``ops/loss_pallas.py``:
 
   * K2, ``rows_value_and_grad`` (mode "loss"): per lane the prices and
     ``sum_rows w * dP/dparams`` with ``w = 2 (P - mkt) / (mkt^2 n_opt)`` —
     the pricing part of the search loss gradient, one launch per L-BFGS
-    trip;
+    trip. Float32 (``cos_vg_f32``: the search and the hybrid refine) or
+    float64 (``cos_vg_f64``: ``calibrate_surface`` and
+    ``hybrid_calibrate`` at float64, where JAX ran XLA autodiff of its
+    loss), chosen by the dtype of the inputs;
   * K3, ``rows_jacobian`` (mode "jac"): per row ``w * dP/dparams`` with
     ``w = 1 / (mkt sqrt(n_opt))`` — the pricing rows of the LM residual
-    Jacobian, one launch per LM trip.
+    Jacobian, one launch per LM trip, float32 only (the polish's Jacobian).
 
 On a CPU tensor each wrapper runs its plain PyTorch version instead (K2:
 ``torch.autograd`` of the plain loss rows; K3: ``torch.func.jacfwd`` of the
@@ -34,10 +36,15 @@ from ..models.double_heston import DHParams, price_options
 from ..utils.config import CalibrationConfig
 from . import kernel_build
 
-# Launches of each mode, counted where the kernel is launched.
-LAUNCHES = {"cos_vg_loss": 0, "cos_vg_jac": 0}
+# Launches of each (mode, dtype), counted where the kernel is launched.
+LAUNCHES = {"cos_vg_loss": 0, "cos_vg_jac": 0, "cos_vg_loss_f64": 0}
 
-_MODES = {"loss": 0, "jac": 1}
+# (mode, dtype) -> (C entry, mode number, launch count key)
+_ENTRIES = {
+    ("loss", torch.float32): ("cos_vg_f32", 0, "cos_vg_loss"),
+    ("jac", torch.float32): ("cos_vg_f32", 1, "cos_vg_jac"),
+    ("loss", torch.float64): ("cos_vg_f64", 0, "cos_vg_loss_f64"),
+}
 # params, spots, strikes, mats, is_call, mkt, price_out, grad_out; rate, q,
 # L; n_rows, n_opt, n_terms, mode; stream
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_double] * 3
@@ -47,9 +54,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_double] * 3
 def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
             n_terms, L, q):
     """Launch cos_vg on CUDA tensors: (price [L, n], rows [L, n, 13])."""
-    f32, dev = torch.float32, params.device
-    if dev.type != "cuda":
-        raise ValueError(f"K2/K3 take CUDA or CPU tensors, got {dev}")
+    dt, dev = params.dtype, params.device
+    if dev.type != "cuda" or (mode, dt) not in _ENTRIES:
+        raise ValueError(f"K2 takes float32/float64 and K3 float32 CUDA or "
+                         f"CPU tensors, got {mode} {dt} on {dev}")
+    symbol, mode_no, count = _ENTRIES[mode, dt]
     lanes, n_opt = strikes.shape
     if params.shape != (lanes, 13) or spots.shape != (lanes,):
         raise ValueError(f"shape mismatch: params {tuple(params.shape)}, "
@@ -57,24 +66,24 @@ def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
                          f"{(lanes, n_opt)}")
     ins = [params, spots, strikes, maturities]
     for t in ins + [mkt]:
-        if t.dtype != f32 or t.device != dev:
-            raise ValueError("K2/K3 inputs must be float32 on one device")
+        if t.dtype != dt or t.device != dev:
+            raise ValueError("K2/K3 inputs must share dtype and device")
     if is_call.dtype != torch.bool or is_call.shape != strikes.shape \
             or maturities.shape != strikes.shape or mkt.shape != strikes.shape:
         raise ValueError("is_call (bool), maturities and market prices must "
                          "be shaped like strikes")
     ins = [t.contiguous() for t in ins] + [is_call.contiguous(),
                                            mkt.contiguous()]
-    price = torch.empty((lanes, n_opt), dtype=f32, device=dev)
-    rows = torch.empty((lanes, n_opt, 13), dtype=f32, device=dev)
+    price = torch.empty((lanes, n_opt), dtype=dt, device=dev)
+    rows = torch.empty((lanes, n_opt, 13), dtype=dt, device=dev)
     if lanes * n_opt == 0:
         return price, rows
-    err = kernel_build.entry("cos_vg", "cos_vg_f32", _ARGTYPES)(
+    err = kernel_build.entry("cos_vg", symbol, _ARGTYPES)(
         *(t.data_ptr() for t in ins), price.data_ptr(), rows.data_ptr(),
         float(rate), float(q), float(L), lanes * n_opt, n_opt, n_terms,
-        _MODES[mode], torch.cuda.current_stream(dev).cuda_stream)
-    kernel_build.check(err, f"cos_vg_{mode}")
-    LAUNCHES[f"cos_vg_{mode}"] += 1
+        mode_no, torch.cuda.current_stream(dev).cuda_stream)
+    kernel_build.check(err, count)
+    LAUNCHES[count] += 1
     return price, rows
 
 
@@ -114,7 +123,8 @@ def rows_jacobian_plain(params, spots, rate, strikes, maturities, is_call,
 
 def rows_value_and_grad(params, spots, rate, strikes, maturities, is_call,
                         mkt, n_terms: int, L: float = 10.0, q: float = 0.0):
-    """K2: ``(price [L, n], sum_rows w * dP/dparams [L, 13])``, float32."""
+    """K2: ``(price [L, n], sum_rows w * dP/dparams [L, 13])``, float32 or
+    float64."""
     if params.device.type == "cpu":
         return rows_value_and_grad_plain(params, spots, rate, strikes,
                                          maturities, is_call, mkt, n_terms,
@@ -172,7 +182,7 @@ def make_batch_value_and_grad(spots, strikes, maturities, is_call,
                               market_prices, rate,
                               config: CalibrationConfig):
     """``vg(x: [L, 13]) -> (f: [L], g: [L, 13])`` in the dtype of
-    ``market_prices`` (float32 on the card, where K2 is float32) whose pricing
+    ``market_prices`` (float32 or float64, K2 at that dtype) whose pricing
     value and gradient come from K2, with the semantics of autograd of
     ``calibration/loss.py::surface_loss`` per lane: invalid prices give the
     sentinel ``config.bad_loss`` with a zero gradient, the Feller penalty

@@ -103,6 +103,23 @@ class SurfaceSpec:
         return len(self.rel_strikes) * len(self.maturities)
 
 
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    """Synthetic data generator settings (data/synthetic.py). With
+    ``enforce_feller`` the generator caps sigma_i at ``feller_margin *
+    sqrt(2 kappa_i theta_i)``, so the truths stay recoverable under the
+    Feller-penalised loss."""
+    n_samples: int = 500
+    ar_alpha: float = 0.9
+    spot_drift: float = 0.0003
+    spot_vol: float = 0.01
+    market_noise: float = 0.02
+    start_date: str = "2022-01-03"
+    surface: SurfaceSpec = SurfaceSpec()
+    enforce_feller: bool = True
+    feller_margin: float = 0.90
+
+
 _SEARCH_IMPLS = ("vmap", "batched", "pallas")
 _POLISH_IMPLS = ("vmap", "pallas")
 _RESIDUAL_IMPLS = ("dd", "native")

@@ -4,13 +4,21 @@ PyTorch returns before the card has finished, so a host clock around
 unsynchronised work measures the enqueue. ``cuda_time_ms`` records CUDA
 events around ``repeats`` calls, synchronises, and returns the mean
 milliseconds per call; ``CudaTimer`` brackets arbitrary work the same way.
-Both need a CUDA device and raise without one.
+Both need a CUDA device and raise without one. ``synchronize(device)``
+waits for a CUDA device and does nothing for the CPU, for host-clock
+timings that must include the device's work.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+
+def synchronize(device) -> None:
+    """Wait for ``device`` if it is a CUDA device."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _require_cuda():

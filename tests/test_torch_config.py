@@ -13,7 +13,7 @@ from option_pricing_ffn_lbfgs_tpu_torch.convert import config_from_dict
 from option_pricing_ffn_lbfgs_tpu_torch.utils import config as tcfg
 
 NAMES = ["PricerConfig", "LBFGSConfig", "LMConfig", "CalibrationConfig",
-         "SurfaceSpec"]
+         "SurfaceSpec", "GeneratorConfig"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -33,12 +33,15 @@ def test_convert_round_trip(name):
                                   polish_wave_budgets=(8, 8),
                                   pricer=jcfg.PricerConfig(n_terms=32)),
         "SurfaceSpec": dict(maturities=(0.5, 1.0)),
+        "GeneratorConfig": dict(n_samples=8, enforce_feller=False,
+                                surface=jcfg.SurfaceSpec(spot=50.0)),
     }[name]
     j = getattr(jcfg, name)(**overrides)
     t = config_from_dict(getattr(tcfg, name), dataclasses.asdict(j))
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t == getattr(tcfg, name)(**{
-        k: (config_from_dict(tcfg.PricerConfig, dataclasses.asdict(v))
+        k: (config_from_dict(getattr(tcfg, type(v).__name__),
+                             dataclasses.asdict(v))
             if dataclasses.is_dataclass(v) else v)
         for k, v in overrides.items()})
 

@@ -1,23 +1,32 @@
 """The PyTorch port never imports JAX.
 
-A fresh interpreter imports the port with its whole slice (the package,
-its calibrator, its kernel wrappers and ``convert``) and must find
-neither ``jax`` nor the JAX package in ``sys.modules``.
+A fresh interpreter imports every module of the port, loads the shipped
+surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
+the JAX package through the port, and must find neither ``jax`` nor the
+JAX package in ``sys.modules``.
 """
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
+
+from option_pricing_ffn_lbfgs_tpu.data.synthetic import (
+    generate_dataset, save_dataset)
+from option_pricing_ffn_lbfgs_tpu.utils.config import GeneratorConfig
+
 REPO = Path(__file__).resolve().parent.parent
 
 PROBE = """
+import pkgutil
 import sys
-import option_pricing_ffn_lbfgs_tpu_torch
-import option_pricing_ffn_lbfgs_tpu_torch.calibration.calibrator
-import option_pricing_ffn_lbfgs_tpu_torch.convert
-import option_pricing_ffn_lbfgs_tpu_torch.ops.cos_kernel
-import option_pricing_ffn_lbfgs_tpu_torch.ops.loss_kernel
-import option_pricing_ffn_lbfgs_tpu_torch.utils.timing
+import option_pricing_ffn_lbfgs_tpu_torch as port
+for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    if not mod.name.endswith("__main__"):
+        __import__(mod.name)
+model = port.load_default_model()
+ds = port.load_dataset(sys.argv[1])
+assert ds.n_samples == 2 and model.model.head.out_features == 13
 assert "torch" in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -27,8 +36,12 @@ print(",".join(bad))
 """
 
 
-def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
+def test_port_imports_no_jax(tmp_path):
+    path = str(tmp_path / "jax_written.pkl")
+    save_dataset(generate_dataset(jax.random.key(0),
+                                  GeneratorConfig(n_samples=2), n_terms=16),
+                 path)
+    out = subprocess.run([sys.executable, "-c", PROBE, path], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"JAX modules imported: {out.stdout}"
