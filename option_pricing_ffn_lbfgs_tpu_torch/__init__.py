@@ -5,16 +5,23 @@ package mirrors its module layout and imports ``torch``, never ``jax``.
 Its kernels (``csrc/``) are built for the H100 (sm_90a) at first use; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version.
 
+The entry points run on the card unless the caller asks for the CPU:
+``device=None`` means the device of a tensor input where one was passed,
+else ``cuda``; ``DoubleHestonJumpCalibrator`` and ``load_dataset`` default
+to ``"cuda"``; ``generate_dataset`` prices on ``cuda``. Without a card
+these defaults raise; a CPU run passes ``device="cpu"`` (or CPU tensors).
+
 Quick start::
 
-    import torch
     from option_pricing_ffn_lbfgs_tpu_torch import (
         DoubleHestonJumpCalibrator, hybrid_calibrate_batch_mixed,
         load_default_model)
 
-    cal = DoubleHestonJumpCalibrator(spot, rate, market_options,
-                                     device="cuda")
+    cal = DoubleHestonJumpCalibrator(spot, rate, market_options)  # cuda
     result = cal.calibrate(maxiter=300, multi_start=3)
+    surrogate = load_default_model()
+    out = hybrid_calibrate_batch_mixed(surrogate, spots, rate, strikes,
+                                       maturities, is_call, market_prices)
 """
 from .models.double_heston import (
     DHParams, PARAM_NAMES, char_fn, payoff_coefficients, price_options,

@@ -19,10 +19,12 @@ The single-surface API (``calibrate_surface``,
 surface at the dtype of its market prices: the L-BFGS value-and-grad is
 K2 at float32 or K2<double> at float64.
 
-Inputs may be tensors or arrays; ``device`` (default: the device of
-``market_prices`` if it is a tensor, else the CPU) is where the
-calibration runs. On a CUDA device every pricing call launches a kernel;
-on the CPU the kernels' plain PyTorch versions run.
+Inputs may be tensors or arrays; ``device`` is where the calibration
+runs. ``device=None`` means the device of ``market_prices`` if it is a
+tensor, else ``cuda``: a CPU run must ask for ``device="cpu"`` (or pass
+CPU tensors), and without a card the default raises. On a CUDA device
+every pricing call launches a kernel; on the CPU the kernels' plain
+PyTorch versions run.
 """
 from __future__ import annotations
 
@@ -76,12 +78,14 @@ def _inputs(spots, strikes, maturities, is_call, market_prices, dtype,
             f(market_prices))
 
 
-def _device_of(market_prices, device):
+def _device_of(market_prices, device) -> torch.device:
+    """``device`` if given, else the device of ``market_prices`` if it is
+    a tensor, else ``cuda`` (no CPU fallback)."""
     if device is not None:
         return torch.device(device)
     if isinstance(market_prices, torch.Tensor):
         return market_prices.device
-    return torch.device("cpu")
+    return torch.device("cuda")
 
 
 def _winner(f: torch.Tensor):
@@ -321,12 +325,13 @@ def calibrate_surface(spot, rate: float, strikes, maturities, is_call,
     of ``market_prices``: a batch-of-one ``calibrate_batch``, so K2 (float32)
     or K2<double> (float64) is the value-and-grad. ``x0 [n_starts, 13]``
     replaces the generated starts. The result has no batch axis."""
+    dev = _device_of(market_prices, device)
     mkt = torch.as_tensor(market_prices)
     one = lambda a: torch.as_tensor(a)[None]
     out = calibrate_batch(
         torch.as_tensor(spot).reshape(1), rate, one(strikes), one(maturities),
         one(is_call), mkt[None], generator, config, n_starts,
-        None if x0 is None else one(x0), device, dtype=mkt.dtype)
+        None if x0 is None else one(x0), dev, dtype=mkt.dtype)
     return BatchCalibration(*(a[0] for a in out))
 
 
@@ -361,7 +366,8 @@ class DoubleHestonJumpCalibrator:
     CalibrationResult), backed by ``calibrate_surface``.
 
     ``dtype`` is float32 by default (the JAX package's default without x64)
-    or float64; ``device`` is where it runs. ``generator`` draws the
+    or float64; ``device`` (default ``cuda``) is where it runs; a CPU run
+    passes ``device="cpu"``. ``generator`` draws the
     perturbed starts; every ``calibrate`` call starts from its state at
     construction (a seed-0 CPU generator when None), as the JAX package
     reuses its seed.
@@ -372,7 +378,7 @@ class DoubleHestonJumpCalibrator:
                  config: CalibrationConfig = CalibrationConfig(),
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.spot = spot
         self.risk_free_rate = risk_free_rate
         self.market_options = market_options

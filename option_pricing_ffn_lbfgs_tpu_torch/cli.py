@@ -90,7 +90,7 @@ def cmd_calibrate(args):
     from .calibration.calibrator import DoubleHestonJumpCalibrator
     from .data.synthetic import load_dataset
     dev = _device(args)
-    ds = load_dataset(args.data)
+    ds = load_dataset(args.data, device=dev)
     i = args.index
     opts = [dict(strike=float(k), maturity=float(t), price=float(p),
                  option_type="call")

@@ -4,8 +4,14 @@
 // PyTorch pricer (models/double_heston.py, ops/complex_math.py), in the
 // same order of operations, as __device__ templates over a scalar type S:
 //   * float and double      -> K1 (cos_price.cu), the forward price;
-//   * Dual<float, 13>       -> K2/K3 (cos_vg.cu), the price with its 13
-//                              parameter tangents carried in forward mode.
+//   * Dual<T, 5>, Dual<T, 4>, Dual<T, 2>
+//                           -> K2/K3 (cos_vg.cu, cos_vg_terms.cuh): each
+//                              Heston factor with its derivatives in
+//                              (kappa, theta, sigma, rho, u), the jump factor
+//                              in (lambda, mu_J, sigma_J, u), the payoff in
+//                              the range (a, b).
+// Built for the host (without nvcc), the same templates count operations
+// (op_count.cpp).
 // R = RealOf<S> is the underlying real type; per-row inputs that do not
 // depend on the parameters (strike, maturity, spot, rate) are R, so they
 // carry no tangent. Every literal is written R(...) so a float kernel never
@@ -17,7 +23,13 @@
 // tangent: that is what the double-where guards do in the plain version.
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else  // host build (op_count.cpp): the qualifiers mean nothing there
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#endif
 #include <math.h>
 
 namespace cosm {

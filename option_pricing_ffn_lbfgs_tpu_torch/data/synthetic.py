@@ -148,9 +148,13 @@ def dataset_from_draws(raw, spot_normals, noise_normals,
                        use_pallas: bool = False,
                        device=None) -> SyntheticDataset:
     """Paths, pricing and noise from given draws (``draw``'s three
-    outputs), on ``device`` (default: the device of ``noise_normals``)."""
+    outputs), on ``device`` (default: the device of ``noise_normals`` if it
+    is a tensor, else ``cuda``)."""
+    if device is None:
+        device = (noise_normals.device
+                  if isinstance(noise_normals, torch.Tensor) else "cuda")
+    dev = torch.device(device)
     noise = torch.as_tensor(noise_normals)
-    dev = torch.device(device) if device is not None else noise.device
     params, spots = ar1_paths(raw, spot_normals, config)
     params, spots = params.to(dev, dtype), spots.to(dev, dtype)
     rel, mats = (torch.as_tensor(a, dtype=dtype, device=dev)
@@ -182,8 +186,9 @@ def generate_dataset(generator: Optional[torch.Generator] = None,
                      device=None) -> SyntheticDataset:
     """Generate a synthetic history of ``config.n_samples`` surfaces.
 
-    ``generator`` (a seed-0 CPU generator when None) makes the draws;
-    ``device`` (default: the generator's) prices them. The prices are
+    ``generator`` (a seed-0 CPU generator when None) makes the draws on
+    its own device; ``device`` (default ``cuda``, whatever the generator's
+    device; a CPU run passes ``device="cpu"``) prices them. The prices are
     computed at ``dtype`` by K1 at that dtype; with ``use_pallas`` (the
     JAX package's switch to its float32 Pallas pricer) they are computed
     by K1<float> and cast to ``dtype``. On the CPU the plain pricer runs.
@@ -194,8 +199,7 @@ def generate_dataset(generator: Optional[torch.Generator] = None,
     raw, z, noise = draw(config.n_samples, generator, dtype, n_opt)
     return dataset_from_draws(raw, z, noise, config, dtype, n_terms,
                               use_pallas,
-                              device if device is not None
-                              else generator.device)
+                              device if device is not None else "cuda")
 
 
 def to_calibration_results(ds: SyntheticDataset,
@@ -235,9 +239,10 @@ def save_dataset(ds: SyntheticDataset, path: str,
                                      for k, v in ds._asdict().items()})
 
 
-def load_dataset(path: str, device="cpu") -> SyntheticDataset:
+def load_dataset(path: str, device="cuda") -> SyntheticDataset:
     """Load a dataset saved by either package's ``save_dataset`` (either
-    format) onto ``device``; the JAX package's pickles load without it."""
+    format) onto ``device`` (default ``cuda``; a CPU run passes
+    ``device="cpu"``); the JAX package's pickles load without JAX."""
     to = lambda a: torch.as_tensor(np.asarray(a)).to(device)
     if str(path).endswith(".pkl"):
         recs = load_pickle(path)

@@ -1,22 +1,26 @@
 """K2/K3: fused per-row COS price + weighted parameter gradient.
 
-One CUDA kernel (``csrc/cos_vg.cu``, forward mode with 13 tangents)
+One CUDA kernel (``csrc/cos_vg.cu``: one block per lane, each maturity's
+characteristic function shared by its strikes, structured derivatives)
 serves the two consumers of the JAX package's ``ops/loss_pallas.py``:
 
   * K2, ``rows_value_and_grad`` (mode "loss"): per lane the prices and
     ``sum_rows w * dP/dparams`` with ``w = 2 (P - mkt) / (mkt^2 n_opt)`` —
     the pricing part of the search loss gradient, one launch per L-BFGS
-    trip. Float32 (``cos_vg_f32``: the search and the hybrid refine) or
-    float64 (``cos_vg_f64``: ``calibrate_surface`` and
-    ``hybrid_calibrate`` at float64, where JAX ran XLA autodiff of its
-    loss), chosen by the dtype of the inputs;
+    trip; the kernel sums the rows itself. Float32 (``cos_vg_f32``: the
+    search and the hybrid refine) or float64 (``cos_vg_f64``:
+    ``calibrate_surface`` and ``hybrid_calibrate`` at float64, where JAX ran
+    XLA autodiff of its loss), chosen by the dtype of the inputs;
   * K3, ``rows_jacobian`` (mode "jac"): per row ``w * dP/dparams`` with
     ``w = 1 / (mkt sqrt(n_opt))`` — the pricing rows of the LM residual
     Jacobian, one launch per LM trip, float32 only (the polish's Jacobian).
 
-On a CPU tensor each wrapper runs its plain PyTorch version instead (K2:
-``torch.autograd`` of the plain loss rows; K3: ``torch.func.jacfwd`` of the
-plain residual rows); on a CUDA tensor it launches the kernel or raises.
+Both take the rows' maturity groups (``maturity_groups``), which the host
+assemblies compute once per problem; the wrappers compute them when they
+are not given. On a CPU tensor each wrapper runs its plain PyTorch version
+instead (K2: ``torch.autograd`` of the plain loss rows; K3:
+``torch.func.jacfwd`` of the plain residual rows); on a CUDA tensor it
+launches the kernel or raises.
 
 ``make_batch_value_and_grad`` and ``make_batch_residual_jacobian`` are the
 host assemblies of ``loss_pallas.py:205-231`` and ``:273-285``: the
@@ -45,15 +49,29 @@ _ENTRIES = {
     ("jac", torch.float32): ("cos_vg_f32", 1, "cos_vg_jac"),
     ("loss", torch.float64): ("cos_vg_f64", 0, "cos_vg_loss_f64"),
 }
-# params, spots, strikes, mats, is_call, mkt, price_out, grad_out; rate, q,
-# L; n_rows, n_opt, n_terms, mode; stream
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_double] * 3
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# params, spots, strikes, mats, is_call, mkt, groups, price_out, grad_out;
+# rate, q, L; n_lanes, n_opt, n_terms, mode; stream
+ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_double] * 3
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def maturity_groups(maturities: torch.Tensor) -> torch.Tensor:
+    """``[L, n]`` int32 maturity-group ids: per lane, the rows with equal
+    maturities share an id, numbered 0, 1, ... in order of first
+    appearance. The kernel evaluates each group's characteristic function
+    once for all its rows."""
+    eq = maturities[..., :, None] == maturities[..., None, :]     # [L, n, n]
+    first = torch.argmax(eq.to(torch.int8), dim=-1)               # first equal
+    n = maturities.shape[-1]
+    is_first = first == torch.arange(n, device=maturities.device)
+    dense = torch.cumsum(is_first.to(torch.int32), dim=-1) - 1
+    return torch.gather(dense, -1, first).to(torch.int32)
 
 
 def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
-            n_terms, L, q):
-    """Launch cos_vg on CUDA tensors: (price [L, n], rows [L, n, 13])."""
+            n_terms, L, q, groups):
+    """Launch cos_vg on CUDA tensors: (price [L, n], grad [L, 13] in mode
+    "loss" or rows [L, n, 13] in mode "jac")."""
     dt, dev = params.dtype, params.device
     if dev.type != "cuda" or (mode, dt) not in _ENTRIES:
         raise ValueError(f"K2 takes float32/float64 and K3 float32 CUDA or "
@@ -72,19 +90,26 @@ def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
             or maturities.shape != strikes.shape or mkt.shape != strikes.shape:
         raise ValueError("is_call (bool), maturities and market prices must "
                          "be shaped like strikes")
-    ins = [t.contiguous() for t in ins] + [is_call.contiguous(),
-                                           mkt.contiguous()]
+    if groups is None:
+        groups = maturity_groups(maturities)
+    if groups.dtype != torch.int32 or groups.shape != strikes.shape \
+            or groups.device != dev:
+        raise ValueError("groups must be int32, shaped like strikes, on the "
+                         "inputs' device")
+    ins = [t.contiguous() for t in ins] + [
+        is_call.contiguous(), mkt.contiguous(), groups.contiguous()]
     price = torch.empty((lanes, n_opt), dtype=dt, device=dev)
-    rows = torch.empty((lanes, n_opt, 13), dtype=dt, device=dev)
+    grad = torch.empty((lanes, 13) if mode_no == 0 else (lanes, n_opt, 13),
+                       dtype=dt, device=dev)
     if lanes * n_opt == 0:
-        return price, rows
-    err = kernel_build.entry("cos_vg", symbol, _ARGTYPES)(
-        *(t.data_ptr() for t in ins), price.data_ptr(), rows.data_ptr(),
-        float(rate), float(q), float(L), lanes * n_opt, n_opt, n_terms,
-        mode_no, torch.cuda.current_stream(dev).cuda_stream)
+        return price, grad.zero_()
+    err = kernel_build.entry("cos_vg", symbol, ARGTYPES)(
+        *(t.data_ptr() for t in ins), price.data_ptr(), grad.data_ptr(),
+        float(rate), float(q), float(L), lanes, n_opt, n_terms, mode_no,
+        torch.cuda.current_stream(dev).cuda_stream)
     kernel_build.check(err, count)
     LAUNCHES[count] += 1
-    return price, rows
+    return price, grad
 
 
 def rows_value_and_grad_plain(params, spots, rate, strikes, maturities,
@@ -122,26 +147,28 @@ def rows_jacobian_plain(params, spots, rate, strikes, maturities, is_call,
 
 
 def rows_value_and_grad(params, spots, rate, strikes, maturities, is_call,
-                        mkt, n_terms: int, L: float = 10.0, q: float = 0.0):
+                        mkt, n_terms: int, L: float = 10.0, q: float = 0.0,
+                        groups=None):
     """K2: ``(price [L, n], sum_rows w * dP/dparams [L, 13])``, float32 or
-    float64."""
+    float64. ``groups``: ``maturity_groups(maturities)``, computed here when
+    None."""
     if params.device.type == "cpu":
         return rows_value_and_grad_plain(params, spots, rate, strikes,
                                          maturities, is_call, mkt, n_terms,
                                          L, q)
-    price, rows = _launch("loss", params, spots, rate, strikes, maturities,
-                          is_call, mkt, n_terms, L, q)
-    return price, rows.sum(dim=1)
+    return _launch("loss", params, spots, rate, strikes, maturities, is_call,
+                   mkt, n_terms, L, q, groups)
 
 
 def rows_jacobian(params, spots, rate, strikes, maturities, is_call, mkt,
-                  n_terms: int, L: float = 10.0, q: float = 0.0):
-    """K3: ``(price [L, n], w * dP/dparams [L, n, 13])``, float32."""
+                  n_terms: int, L: float = 10.0, q: float = 0.0, groups=None):
+    """K3: ``(price [L, n], w * dP/dparams [L, n, 13])``, float32.
+    ``groups`` as for ``rows_value_and_grad``."""
     if params.device.type == "cpu":
         return rows_jacobian_plain(params, spots, rate, strikes, maturities,
                                    is_call, mkt, n_terms, L, q)
     return _launch("jac", params, spots, rate, strikes, maturities, is_call,
-                   mkt, n_terms, L, q)
+                   mkt, n_terms, L, q, groups)
 
 
 def _feller_value_and_grad(params: torch.Tensor, weight: float):
@@ -192,13 +219,14 @@ def make_batch_value_and_grad(spots, strikes, maturities, is_call,
         t.to(dt) for t in (spots, strikes, maturities, market_prices))
     pc = config.pricer
     weight, bad_loss = config.feller_weight, config.bad_loss
+    groups = maturity_groups(maturities)    # fixed across optimizer trips
 
     def vg(x):
         x = x.to(dt)
         params = transform(x)
         price, g_price = rows_value_and_grad(
             params, spots, rate, strikes, maturities, is_call, mkt,
-            pc.n_terms, pc.trunc_L, pc.dividend_yield)
+            pc.n_terms, pc.trunc_L, pc.dividend_yield, groups)
         valid = torch.isfinite(price) & (price > 0.0)
         rel = torch.where(valid, (price - mkt) / mkt, torch.zeros_like(mkt))
         pen, pen_g = _feller_value_and_grad(params, weight)
@@ -229,13 +257,14 @@ def make_batch_residual_jacobian(spots, strikes, maturities, is_call,
         t.to(dt) for t in (spots, strikes, maturities, market_prices))
     pc = config.pricer
     weight = config.feller_weight
+    groups = maturity_groups(maturities)    # fixed across optimizer trips
 
     def jac(x):
         x = x.to(dt)
         params = transform(x)
         _, j_price = rows_jacobian(params, spots, rate, strikes, maturities,
                                    is_call, mkt, pc.n_terms, pc.trunc_L,
-                                   pc.dividend_yield)
+                                   pc.dividend_yield, groups)
         J = torch.cat([j_price, _feller_jacobian(params, weight)], dim=1)
         return J * dtransform_dx(x)[:, None, :]
 

@@ -1,0 +1,124 @@
+"""Work of a kernel call and the least time the card could take for it.
+
+``ITEM_OPS`` holds the operations per item of the kernels' own formula
+templates, as ``csrc/op_count.cpp`` counts them: it builds those templates
+for the host with a counting scalar (that file says what counts as an
+operation: each arithmetic operation and each transcendental counts one,
+what the compiler folds counts none). The counts depend on the number of
+terms N only, not on the data; ``tests/test_torch_opcount.py`` builds the
+counter and holds these constants to it. ``cos_vg_work`` and
+``cos_price_work`` multiply them by the items a call's inputs need and
+count each input byte read once and each output byte written once:
+
+  * K2/K3: one characteristic-function item per (lane, effective group, k),
+    where a lane's effective groups are its maturities plus one group for
+    each row whose widening to log(K/S0) -/+ 0.1 binds; one payoff item per
+    (row, k); one range per (lane, maturity);
+  * K1: one row of the COS series per (lane, option) row.
+
+``bound_ms`` is the larger of operations over the card's peak rate for
+their type and bytes over its memory rate (NVIDIA H100 SXM data sheet:
+67 TFLOP/s FP32 and 34 TFLOP/s FP64 outside the tensor cores, 3.35 TB/s).
+
+Measurement only: no calibration path imports this module.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..models import double_heston as dh
+from .loss_kernel import maturity_groups
+
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+MEM_BYTES_PER_S = 3.35e12
+# csrc/op_count.cpp's output at the main paths' N (per item; a CF item and
+# a payoff item are means over k = 0 .. N-1, k = 0 being cheaper).
+ITEM_OPS = {
+    64: {"group_range": 425, "cf_item": 1519.109375, "row_setup_call": 13,
+         "row_setup_put": 13, "payoff_term_call": 133.375,
+         "payoff_term_put": 130.4375, "k1_row_call": 16964,
+         "k1_row_put": 16964},
+    128: {"group_range": 425, "cf_item": 1528.554688, "row_setup_call": 13,
+          "row_setup_put": 13, "payoff_term_call": 134.1875,
+          "payoff_term_put": 131.21875, "k1_row_call": 33924,
+          "k1_row_put": 33924},
+}
+
+
+def _cumulant_range(params: torch.Tensor, tau, rate, L):
+    """[a, b] of ``truncation_range`` before the per-row widening."""
+    p = dh.DHParams.from_vector(params[:, None, :])
+    c1a, c2a = dh._factor_cumulants(tau, rate, p.v1_0, p.kappa1, p.theta1,
+                                    p.sigma1, p.rho1)
+    c1b, c2b = dh._factor_cumulants(tau, rate, p.v2_0, p.kappa2, p.theta2,
+                                    p.sigma2, p.rho2)
+    c1 = c1a + c1b + p.lambda_j * tau * p.mu_j
+    c2 = c2a + c2b + p.lambda_j * tau * (p.sigma_j**2 + p.mu_j**2)
+    spread = L * torch.sqrt(torch.abs(c2))
+    return c1 - spread, c1 + spread
+
+
+def effective_groups(params, spots, strikes, maturities, rate=0.03, L=10.0):
+    """Per lane: (maturity groups, effective groups) as the K2/K3 kernel
+    forms them; a row whose widening binds is a group of its own."""
+    params, spots, strikes, maturities = (
+        torch.as_tensor(t, dtype=torch.float64)
+        for t in (params, spots, strikes, maturities))
+    groups = maturity_groups(maturities).long()
+    n = groups.shape[-1]
+    a0, b0 = _cumulant_range(params, maturities, rate, L)
+    log_k = torch.log(strikes / spots[:, None])
+    shared = (a0 < log_k - 0.1) & (b0 > log_k + 0.1)
+    slot = torch.where(shared, groups, torch.full_like(groups, n))
+    used = torch.zeros(groups.shape[0], n + 1, dtype=torch.float64,
+                       device=groups.device).scatter_(1, slot, 1.0)
+    n_eff = used[:, :n].sum(-1) + (~shared).sum(-1)
+    return groups.max(-1).values + 1, n_eff.long()
+
+
+def _size(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def cos_vg_work(params, spots, strikes, maturities, is_call, mkt,
+                n_terms: int, mode: str, rate=0.03, L=10.0):
+    """Operations and bytes of one K2 (``mode="loss"``) or K3
+    (``mode="jac"``) launch on these inputs."""
+    c = ITEM_OPS[n_terms]
+    n_mat, n_eff = effective_groups(params, spots, strikes, maturities,
+                                    rate, L)
+    calls = int(is_call.sum())
+    puts = is_call.numel() - calls
+    ops = (int(n_mat.sum()) * c["group_range"]
+           + int(n_eff.sum()) * n_terms * c["cf_item"]
+           + calls * (c["row_setup_call"] + n_terms * c["payoff_term_call"])
+           + puts * (c["row_setup_put"] + n_terms * c["payoff_term_put"]))
+    rows, item = strikes.numel(), params.element_size()
+    grad = (params.shape[0] if mode == "loss" else rows) * 13 * item
+    nbytes = (sum(_size(t) for t in (params, spots, strikes, maturities,
+                                     is_call, mkt))
+              + rows * 4                      # int32 maturity groups
+              + rows * item + grad)           # prices, gradient
+    return {"ops": ops, "bytes": nbytes, "effective_groups": int(n_eff.sum())}
+
+
+def cos_price_work(params, spots, strikes, maturities, is_call, n_terms: int):
+    """Operations and bytes of one K1 launch on these inputs."""
+    c = ITEM_OPS[n_terms]
+    calls = int(is_call.sum())
+    ops = calls * c["k1_row_call"] + (is_call.numel() - calls) * c["k1_row_put"]
+    nbytes = (sum(_size(t) for t in (params, spots, strikes, maturities,
+                                     is_call))
+              + strikes.numel() * params.element_size())
+    return {"ops": ops, "bytes": nbytes}
+
+
+def bound_ms(work: Dict[str, float], dtype: torch.dtype):
+    """(milliseconds, "operations" or "bytes"): the least time the card
+    could take for ``work``, and which of the two bounds it."""
+    t_ops = work["ops"] / PEAK_OPS_PER_S[dtype]
+    t_bytes = work["bytes"] / MEM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")

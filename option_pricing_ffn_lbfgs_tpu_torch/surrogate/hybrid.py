@@ -52,12 +52,14 @@ def ffn_only_predict(surrogate: TrainedSurrogate, market_prices, spot):
 def hybrid_calibrate(surrogate: TrainedSurrogate, spot, rate: float, strikes,
                      maturities, is_call, market_prices,
                      config: CalibrationConfig = CalibrationConfig(),
-                     refine_maxiter: int = 10) -> HybridResult:
+                     refine_maxiter: int = 10, device=None) -> HybridResult:
     """One surface ``[n_opt]``: FFN warm start + ``refine_maxiter``
-    L-BFGS iterations at ``config.pricer.n_terms``, at the dtype and on the
-    device of ``market_prices``."""
+    L-BFGS iterations at ``config.pricer.n_terms``, at the dtype of
+    ``market_prices``, on ``device`` (default: the device of
+    ``market_prices`` if it is a tensor, else ``cuda``)."""
+    dev = _device_of(market_prices, device)
     mkt = torch.as_tensor(market_prices)
-    dt, dev = mkt.dtype, mkt.device
+    dt = mkt.dtype
     one = lambda a: torch.as_tensor(a)[None]
     spots, strikes, maturities, is_call, mkt = _inputs(
         torch.as_tensor(spot).reshape(1), one(strikes), one(maturities),
@@ -91,11 +93,12 @@ def hybrid_calibrate_batch_mixed(surrogate: TrainedSurrogate, spots,
     type-0 safeguard start) -> float32 L-BFGS refine -> float64 LM polish
     of each surface's refine winner.
 
-    Returns a ``BatchCalibration``: ``per_start_x`` holds the float32
-    refine iterates with the winner's row replaced by its polished
-    iterate, ``per_start_loss`` the refine losses; ``iterations`` and
-    ``n_evals`` add the winner's refine and polish counts; ``converged``
-    is the polish's or the refine's flag.
+    ``device`` defaults to the device of ``market_prices`` if it is a
+    tensor, else ``cuda``. Returns a ``BatchCalibration``: ``per_start_x``
+    holds the float32 refine iterates with the winner's row replaced by
+    its polished iterate, ``per_start_loss`` the refine losses;
+    ``iterations`` and ``n_evals`` add the winner's refine and polish
+    counts; ``converged`` is the polish's or the refine's flag.
     """
     if polish is None:
         polish = POLISH_LM

@@ -1,0 +1,230 @@
+"""This tree's port against another checkout's, in turns on one card.
+
+    python3 -m option_pricing_ffn_lbfgs_tpu_torch.tools.ab_parent PARENT_DIR
+
+``PARENT_DIR`` is an unpacked checkout of another commit (``git archive``
+into a git-ignored directory). Each side runs in a process of its own with
+its tree first on ``sys.path``: it imports its own package, builds its own
+kernels into its own ``_build/`` and launches them through its own wrappers,
+so nothing here depends on a kernel's C interface. Both trees must have the
+public names used below: the entry points, the configs,
+``calibrator.POLISH_LM``, the wrappers ``loss_kernel.rows_value_and_grad`` /
+``rows_jacobian`` and the ``LAUNCHES`` counts. The sides run in turns
+(parent, this, this, parent); each run prints
+
+  1. wrapper times (CUDA events, best of two) at the main path's widths and
+     at 15 lanes;
+  2. the mean pricing error and the wall (CUDA events) of
+     ``calibrate_batch_mixed`` on 512 Feller-capped surfaces x 3 starts,
+     over 8 (problem, start) seed pairs;
+  3. the hybrid on four slices of 512 generated surfaces: wall, L-BFGS
+     trips, error;
+  4. the bench twin (6 sets x 5 surfaces): host wall per surface;
+
+and the lines marked ``[ab]`` compare the sides over all their runs.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+RANGES = np.array([(0.025, 0.080), (1.5, 4.5), (0.025, 0.065), (0.20, 0.50),
+                   (-0.85, -0.40), (0.020, 0.070), (0.30, 1.20),
+                   (0.025, 0.070), (0.10, 0.35), (-0.70, -0.20),
+                   (0.05, 0.25), (-0.08, -0.01), (0.03, 0.12)])
+STRIKES = np.tile([90.0, 95.0, 100.0, 105.0, 110.0], 3)
+MATS = np.repeat([0.25, 0.5, 1.0], 5)
+# (label, wrapper, lanes, dtype, N): the search and polish at 512 x 3, the
+# hybrid's refine and polish, one surface's 15 lanes, K2<double>
+KERNEL_CASES = (("K2", "loss", 1536, "float32", 64),
+                ("K3", "jac", 1536, "float32", 64),
+                ("K2", "loss", 1024, "float32", 128),
+                ("K3", "jac", 512, "float32", 64),
+                ("K2", "loss", 15, "float32", 64),
+                ("K3", "jac", 15, "float32", 64),
+                ("K2<double>", "loss", 15, "float64", 128),
+                ("K2<double>", "loss", 1536, "float64", 128))
+
+
+def measure() -> dict:
+    """One side's run, in the package found first on ``sys.path``."""
+    import dataclasses
+    import time
+
+    import torch
+
+    import option_pricing_ffn_lbfgs_tpu_torch as port
+    from option_pricing_ffn_lbfgs_tpu_torch.calibration import calibrator
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import loss_kernel
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.config import (
+        CalibrationConfig, GeneratorConfig)
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.timing import (
+        CudaTimer, cuda_time_ms)
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    out = {"kernels": {}, "means": [], "walls": [], "hybrid": [], "twin": 0.0}
+
+    # 1. wrapper times
+    rng = np.random.default_rng(0)
+    for label, mode, lanes, dt, n_terms in KERNEL_CASES:
+        dt = getattr(torch, dt)
+        t = lambda a: torch.tensor(a, dtype=dt, device=dev)
+        params = t(rng.uniform(RANGES[:, 0], RANGES[:, 1], (lanes, 13)))
+        spots, strikes, mats = (t(np.full(lanes, 100.0)),
+                                t(np.tile(STRIKES, (lanes, 1))),
+                                t(np.tile(MATS, (lanes, 1))))
+        call = torch.ones((lanes, 15), dtype=torch.bool, device=dev)
+        mkt = port.price_surfaces(params, spots, 0.03, strikes, mats,
+                                  call) * 1.2
+        # a tree whose wrappers take the rows' maturity groups gets them
+        # computed once, as its host assembly does
+        kw = ({"groups": loss_kernel.maturity_groups(mats)}
+              if hasattr(loss_kernel, "maturity_groups") else {})
+        wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
+                else loss_kernel.rows_jacobian)
+        fn = lambda: wrap(params, spots, 0.03, strikes, mats, call, mkt,
+                          n_terms, **kw)
+        ms = min(cuda_time_ms(fn), cuda_time_ms(fn))
+        key = f"{label} L={lanes} N={n_terms}"
+        out["kernels"][key] = ms
+        print(f"[1] {key}: {ms:.4f} ms", flush=True)
+
+    cfg = CalibrationConfig(search_impl="pallas", polish_impl="pallas",
+                            polish_fused_min_lanes=1)
+    polish = dataclasses.replace(calibrator.POLISH_LM, residual_impl="native")
+
+    def problem_set(n_surf, seed, feller_margin=None):
+        """chip_smoke.py's recipe: bench.py's ranges, noiseless float64
+        prices, optionally Feller-capped truths."""
+        rng = np.random.default_rng(seed)
+        true = np.stack([rng.uniform(lo, hi, n_surf) for lo, hi in RANGES],
+                        -1)
+        if feller_margin is not None:
+            for s, k, t in ((3, 1, 2), (8, 6, 7)):
+                true[:, s] = np.minimum(true[:, s], feller_margin * np.sqrt(
+                    2 * true[:, k] * true[:, t]))
+        t = lambda a: torch.tensor(a, dtype=f64, device=dev)
+        args = (t(np.full(n_surf, 100.0)), t(np.tile(STRIKES, (n_surf, 1))),
+                t(np.tile(MATS, (n_surf, 1))),
+                torch.ones((n_surf, 15), dtype=torch.bool, device=dev))
+        prices = port.price_surfaces(t(true), args[0], 0.03, *args[1:])
+        return (*args, prices), prices.cpu().numpy()
+
+    def calibrate(args, seed):
+        return port.calibrate_batch_mixed(
+            args[0], 0.03, *args[1:], torch.Generator().manual_seed(seed),
+            config=cfg, n_starts=3, polish=polish)
+
+    def err_pct(res, prices):
+        return np.abs(res.model_prices.cpu().numpy() / prices - 1).mean(-1) \
+            * 100
+
+    # 2. accuracy and wall over 8 seed pairs, after a warm-up at this size
+    sets = {p: problem_set(512, 2026 + p, 0.90) for p in (100, 101, 102, 103)}
+    calibrate(sets[100][0], 100)
+    for pseed, (args, prices) in sets.items():
+        for sseed in (100, 7):
+            with CudaTimer() as timer:
+                res = calibrate(args, sseed)
+            e = err_pct(res, prices)
+            out["means"].append(float(e.mean()))
+            out["walls"].append(timer.ms)
+            print(f"[2] problem 2026+{pseed} starts {sseed}: mean "
+                  f"{e.mean():.5f} %, median {np.median(e):.5f} %, above "
+                  f"0.1 %: {int((e > 0.1).sum())}, max {e.max():.4f} %, "
+                  f"wall {timer.ms:.2f} ms", flush=True)
+
+    # 3. the hybrid on four slices of 512 generated surfaces
+    ds = port.generate_dataset(torch.Generator(dev).manual_seed(9),
+                               GeneratorConfig(n_samples=5000), dtype=f64,
+                               n_terms=128, device=dev)
+    surrogate = port.load_default_model()
+    for lo in (0, 512, 1024, 1536):
+        cut = slice(lo, lo + 512)
+        h = (ds.spots[cut], 0.03, ds.strikes[cut], ds.maturities[cut],
+             torch.ones((512, 15), dtype=torch.bool, device=dev),
+             ds.model_prices[cut])
+        if lo == 0:            # warm-up at 8 surfaces
+            port.hybrid_calibrate_batch_mixed(
+                surrogate, *(a[:8] if torch.is_tensor(a) else a for a in h))
+        before = loss_kernel.LAUNCHES["cos_vg_loss"]
+        with CudaTimer() as timer:
+            res = port.hybrid_calibrate_batch_mixed(surrogate, *h)
+        trips = loss_kernel.LAUNCHES["cos_vg_loss"] - before
+        e = err_pct(res, h[-1].cpu().numpy())
+        out["hybrid"].append({"wall": timer.ms, "trips": trips,
+                              "mean": float(e.mean())})
+        print(f"[3] hybrid surfaces {lo}..{lo + 511}: wall {timer.ms:.2f} "
+              f"ms, {trips} L-BFGS trips ({timer.ms / trips:.3f} ms a "
+              f"trip), mean {e.mean():.5f} %, max {e.max():.5f} %",
+              flush=True)
+
+    # 4. the bench twin
+    twin = [problem_set(5, 2026 + i) for i in range(6)]
+    calibrate(twin[0][0], 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = [err_pct(calibrate(a, i), p) for i, (a, p) in enumerate(twin)]
+    torch.cuda.synchronize()
+    out["twin"] = (time.perf_counter() - t0) / 30 * 1e3
+    print(f"[4] bench twin: {out['twin']:.2f} ms a surface, mean "
+          f"{np.concatenate(errs).mean():.5f} %", flush=True)
+    return out
+
+
+def run_side(tree: Path, label: str) -> dict:
+    """``measure()`` in a fresh process that imports ``tree``'s package."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tree)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--measure"], cwd=tree, env=env,
+                          capture_output=True, text=True)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print(f"{label}: {line}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"{label} run failed with exit {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv == ["--measure"]:
+        print(json.dumps(measure()))
+        return
+    trees = {"parent": Path(argv[0]).resolve(),
+             "this": Path(__file__).resolve().parents[2]}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    runs = {"parent": [], "this": []}
+    for side in ("parent", "this", "this", "parent"):
+        runs[side].append(run_side(trees[side], side))
+    for key in runs["this"][0]["kernels"]:
+        best = {s: min(r["kernels"][key] for r in runs[s]) for s in runs}
+        print(f"[ab] {key}: parent {best['parent']:.4f} ms, this "
+              f"{best['this']:.4f} ms")
+    for side, rs in runs.items():
+        walls = [w for r in rs for w in r["walls"]]
+        means = rs[0]["means"]
+        print(f"[ab] {side} 512 x 3: mean of the 8 means "
+              f"{np.mean(means):.5f} % (sd {np.std(means, ddof=1):.5f} %), "
+              f"runs above 0.03 %: {sum(m > 0.03 for m in means)}; wall "
+              f"median {np.median(walls):.2f} ms over {len(walls)} calls "
+              f"(min {min(walls):.2f}, max {max(walls):.2f})")
+        print(f"[ab] {side} hybrid: trips per slice "
+              f"{[h['trips'] for h in rs[0]['hybrid']]}, walls "
+              f"{[[round(h['wall'], 2) for h in r['hybrid']] for r in rs]} "
+              f"ms, mean error {[round(h['mean'], 5) for h in rs[0]['hybrid']]}"
+              f" %; bench twin {[round(r['twin'], 2) for r in rs]} ms a "
+              f"surface")
+
+
+if __name__ == "__main__":
+    main()

@@ -64,7 +64,7 @@ def test_generate_and_calibrate(tmp_path, capsys):
         path = str(tmp_path / f"d{suffix}")
         assert tcli.main(["generate", "--n-samples", "8", "--out", path,
                           *CPU]) == 0
-        ds = port.load_dataset(path)
+        ds = port.load_dataset(path, device="cpu")
         assert ds.n_samples == 8 and ds.market_prices.shape == (8, 15)
         assert ds.market_prices.dtype == torch.float32
         assert jload_dataset(path).market_prices.shape == (8, 15)
@@ -93,7 +93,8 @@ def test_comparison_artefacts(tmp_path):
         pricer=port.PricerConfig(n_terms=64), search_maxeval=40,
         lbfgs=port.LBFGSConfig(maxiter=40))
     ds = port.generate_dataset(torch.Generator().manual_seed(0),
-                               port.GeneratorConfig(n_samples=2), n_terms=64)
+                               port.GeneratorConfig(n_samples=2), n_terms=64,
+                               device="cpu")
     payload = run_comparison(ds, port.load_default_model(), n_eval=1,
                              config=cfg, n_starts=2, out_dir=str(tmp_path))
     for name in ("lbfgs_actual_results.json", "hybrid_actual_results.json"):

@@ -74,7 +74,7 @@ def test_pricing_and_noise_match_generate_dataset():
     _, raw, z, noise = _jax_draws(key, N)
     ds_j = jsyn.generate_dataset(key, cfg_j, F64, n_terms=64)
     ds_t = tsyn.dataset_from_draws(raw, z, noise, cfg_t, torch.float64,
-                                   n_terms=64)
+                                   n_terms=64, device="cpu")
     for name in ("params", "spots", "strikes", "maturities"):
         np.testing.assert_allclose(getattr(ds_t, name).numpy(),
                                    np.asarray(getattr(ds_j, name)),
@@ -93,7 +93,7 @@ def test_generate_dataset_ranges_and_noise():
     2 % noise."""
     cfg = tcfg.GeneratorConfig(n_samples=256)
     ds = tsyn.generate_dataset(torch.Generator().manual_seed(0), cfg,
-                               n_terms=64)
+                               n_terms=64, device="cpu")
     p = ds.params.numpy()
     assert np.all(p >= tsyn.RANGE_LO) and np.all(p <= tsyn.RANGE_HI)
     for s, k, t in ((3, 1, 2), (8, 6, 7)):
@@ -102,7 +102,7 @@ def test_generate_dataset_ranges_and_noise():
     noise = (ds.market_prices / ds.model_prices - 1.0).numpy() / 0.02
     assert abs(noise.mean()) < 0.1 and abs(noise.std() - 1.0) < 0.1
     f32 = tsyn.generate_dataset(torch.Generator().manual_seed(0), cfg,
-                                n_terms=64, use_pallas=True)
+                                n_terms=64, use_pallas=True, device="cpu")
     assert f32.model_prices.dtype == torch.float64
     np.testing.assert_allclose(f32.model_prices.numpy(),
                                ds.model_prices.numpy(), rtol=8e-5)
@@ -113,7 +113,7 @@ def test_datasets_cross_load(tmp_path, suffix):
     cfg_j, cfg_t = _configs()
     ds_j = jsyn.generate_dataset(jax.random.key(5), cfg_j, F64, n_terms=64)
     jsyn.save_dataset(ds_j, str(tmp_path / f"jax{suffix}"), cfg_j)
-    ds_t = tsyn.load_dataset(str(tmp_path / f"jax{suffix}"))
+    ds_t = tsyn.load_dataset(str(tmp_path / f"jax{suffix}"), device="cpu")
     for name, a in ds_j._asdict().items():
         np.testing.assert_array_equal(getattr(ds_t, name).numpy(),
                                       np.asarray(a), err_msg=name)

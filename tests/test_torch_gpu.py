@@ -10,7 +10,11 @@ Tolerances: K1<double> 1e-11 relative (same formulas and order as the
 plain pricer; libm rounding only) and the reference goldens to 1e-9;
 K1<float> 8e-5 relative (the JAX Pallas tests' float32 bar); K2/K3 prices
 8e-5 relative and gradient/Jacobian rows 5e-3 after scaling by their
-largest entry (tests/test_loss_pallas.py's tolerances).
+largest entry (tests/test_loss_pallas.py's tolerances). At the edge shapes
+(lanes 1, 15, 1537 x n_opt 7, 15, 17) the loss and its gradient are held
+as chip_smoke.py holds them: float32 loss 2e-4 relative, gradient 5e-3 of
+its row maximum, K3 5e-3 of the Jacobian's maximum; float64 1e-11 and
+1e-9.
 """
 import dataclasses
 
@@ -22,12 +26,16 @@ import option_pricing_ffn_lbfgs_tpu_torch as port
 from option_pricing_ffn_lbfgs_tpu_torch.calibration import calibrator
 from option_pricing_ffn_lbfgs_tpu_torch.calibration.initial_guess import (
     initial_guesses)
+from option_pricing_ffn_lbfgs_tpu_torch.calibration.loss import (
+    make_loss_fn, make_residual_fn)
 from option_pricing_ffn_lbfgs_tpu_torch.calibration.transforms import (
-    transform)
+    inverse_transform, transform)
 from option_pricing_ffn_lbfgs_tpu_torch.models.double_heston import (
     PARAM_NAMES)
-from option_pricing_ffn_lbfgs_tpu_torch.ops import cos_kernel, loss_kernel
-from option_pricing_ffn_lbfgs_tpu_torch.utils.config import CalibrationConfig
+from option_pricing_ffn_lbfgs_tpu_torch.ops import (
+    cos_kernel, kernel_build, loss_kernel, opcount)
+from option_pricing_ffn_lbfgs_tpu_torch.utils.config import (
+    CalibrationConfig, PricerConfig)
 
 pytestmark = pytest.mark.gpu
 F64, F32 = torch.float64, torch.float32
@@ -44,6 +52,11 @@ TRUE = dict(v1_0=0.05, kappa1=2.0, theta1=0.045, sigma1=0.35, rho1=-0.65,
             lambda_j=0.12, mu_j=-0.05, sigma_j=0.09)
 STRIKES = np.tile([90.0, 95.0, 100.0, 105.0, 110.0], 3)
 MATS = np.repeat([0.25, 0.5, 1.0], 5)
+# bench.py's parameter ranges
+LO = np.array([0.025, 1.5, 0.025, 0.20, -0.85, 0.020, 0.30, 0.025, 0.10,
+               -0.70, 0.05, -0.08, 0.03])
+HI = np.array([0.080, 4.5, 0.065, 0.50, -0.40, 0.070, 1.20, 0.070, 0.35,
+               -0.20, 0.25, -0.01, 0.12])
 
 
 @pytest.fixture
@@ -180,7 +193,8 @@ def test_ffn_forward_on_card(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     s = port.load_default_model()
     ds = port.generate_dataset(torch.Generator().manual_seed(0),
-                               port.GeneratorConfig(n_samples=64), n_terms=64)
+                               port.GeneratorConfig(n_samples=64), n_terms=64,
+                               device="cpu")
     x_cpu = s.predict_x(ds.market_prices, ds.spots)
     x_gpu = s.predict_x(ds.market_prices.to(cuda), ds.spots.to(cuda))
     assert x_gpu.device.type == "cuda" and x_gpu.dtype == F32
@@ -216,3 +230,118 @@ def test_slice_on_card(cuda):
     model = out.model_prices.cpu().numpy()
     assert model.shape == (2, 15) and np.all(np.isfinite(model))
     assert np.mean(np.abs(model / prices.numpy() - 1.0)) * 100 < 0.03
+
+
+def _edge_problem(n_lanes, n_opt, seed, dt, device):
+    """Lanes whose layout cycles over three kinds: three maturities with
+    mixed calls and puts; all maturities distinct; short maturities with
+    in-the-money strikes far from the money, and truths and starts with
+    small variances, where the widening of the truncation range to
+    log(K/S0) -/+ 0.1 binds. Starts are drawn apart from the truths and
+    kept where the float64 loss is at least 0.2: with all-distinct
+    maturities up to 2 years, lanes at 0.05 carry float32 pricing noise of
+    2e-4 relative on the loss (the K2 tolerance) in the plain version and
+    the kernel alike; at 0.2 both stay within 6e-5. The first lane kept is
+    one whose widening binds, so every shape runs the kernel's own-row
+    groups."""
+    rng = np.random.default_rng(seed)
+    m = 4 * n_lanes + 8
+    true, start = rng.uniform(LO, HI, (m, 13)), rng.uniform(LO, HI, (m, 13))
+    kind = (np.arange(m) + n_opt) % 3
+    small = np.where(np.isin(np.arange(13), [0, 2, 5, 7]), 0.3, 1.0)
+    true[kind == 2] *= small
+    start[kind == 2] *= small
+    r = np.arange(n_opt)
+    far = np.resize([70.0, 125.0, 100.0, 80.0, 130.0], n_opt)
+    layouts = [
+        (np.resize(STRIKES[:5], n_opt), np.sort(np.resize(MATS[::5], n_opt)),
+         r % 2 == 0),
+        (np.resize(STRIKES[:5], n_opt), np.linspace(0.1, 2.0, n_opt),
+         r % 2 == 1),
+        (far, np.resize([0.02, 0.02, 0.02, 0.5, 0.5], n_opt), far <= 100.0)]
+    t = lambda a: torch.tensor(np.asarray(a), dtype=F64, device=device)
+    strikes = t(np.stack([layouts[k][0] for k in kind]))
+    mats = t(np.stack([layouts[k][1] for k in kind]))
+    call = torch.tensor(np.stack([layouts[k][2] for k in kind]),
+                        device=device)
+    spots = torch.full((m,), 100.0, dtype=F64, device=device)
+    mkt = cos_kernel.price_surfaces_plain(t(true), spots, 0.03, strikes, mats,
+                                          call, n_terms=64)
+    x = inverse_transform(t(start))
+    cfg = CalibrationConfig(pricer=PricerConfig(n_terms=64))
+    loss = make_loss_fn(spots, 0.03, strikes, mats, call, mkt, cfg)(x)
+    cand = torch.nonzero(loss >= 0.2)[:, 0]
+    n_mat, n_eff = opcount.effective_groups(
+        transform(x[cand]), spots[cand], strikes[cand], mats[cand])
+    binds = n_eff > n_mat
+    assert bool(binds.any())
+    first = int(torch.nonzero(binds)[0, 0])
+    order = [first] + [i for i in range(cand.numel()) if i != first]
+    keep = cand[order[:n_lanes]]
+    assert keep.numel() == n_lanes
+    return (spots[keep].to(dt), strikes[keep].to(dt), mats[keep].to(dt),
+            call[keep], mkt[keep].to(dt), x[keep].to(dt))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 15, 1537])
+@pytest.mark.parametrize("n_opt", [7, 15, 17])
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K2<double>"])
+def test_edge_shapes_match_plain(cuda, kernel, n_opt, n_lanes):
+    """K2, K3 and K2<double> through their host assemblies against autograd
+    (jacfwd for K3) of the plain loss (residuals) at the same dtype."""
+    dt, n_terms = (F64, 128) if kernel == "K2<double>" else (F32, 64)
+    prob = _edge_problem(n_lanes, n_opt, 100 + n_lanes + n_opt, dt, cuda)
+    cfg = CalibrationConfig(pricer=PricerConfig(n_terms=n_terms))
+    if kernel == "K3":
+        J_k = loss_kernel.make_batch_residual_jacobian(*prob[:5], 0.03,
+                                                       cfg)(prob[5])
+        res = make_residual_fn(*prob[:1], 0.03, *prob[1:5], cfg)
+        zero = torch.zeros(13, dtype=dt, device=cuda)
+        J_p = torch.func.jacfwd(lambda dl: res(prob[5] + dl))(zero)
+        assert J_k.shape == (n_lanes, n_opt + 2, 13)
+        scale = float(J_p.abs().max())
+        np.testing.assert_allclose((J_k / scale).cpu().numpy(),
+                                   (J_p / scale).cpu().numpy(), atol=5e-3)
+        return
+    ftol, gtol = (1e-11, 1e-9) if dt == F64 else (2e-4, 5e-3)
+    f_k, g_k = loss_kernel.make_batch_value_and_grad(*prob[:5], 0.03,
+                                                     cfg)(prob[5])
+    xr = prob[5].detach().requires_grad_(True)
+    f_p = make_loss_fn(*prob[:1], 0.03, *prob[1:5], cfg)(xr)
+    g_p, = torch.autograd.grad(f_p.sum(), xr)
+    np.testing.assert_allclose(f_k.cpu().numpy(), f_p.detach().cpu().numpy(),
+                               rtol=ftol)
+    scale = g_p.abs().amax(-1, keepdim=True).clamp(min=1e-6)
+    np.testing.assert_allclose((g_k / scale).cpu().numpy(),
+                               (g_p / scale).cpu().numpy(), atol=gtol)
+
+
+@pytest.mark.parametrize("mode,dt,n_terms", [
+    ("loss", F32, 64), ("jac", F32, 64), ("loss", F64, 128)])
+def test_guard_band_and_identical_bits(cuda, mode, dt, n_terms):
+    """The C entry, called on outputs one lane longer than needed and filled
+    with a sentinel, leaves the tail untouched; its rows equal, bit for bit,
+    two launches through the wrapper (sums in a fixed order, no atomics)."""
+    spots, strikes, mats, call, mkt, x = _edge_problem(15, 15, 5, dt, cuda)
+    params = transform(x)
+    symbol, mode_no, _ = loss_kernel._ENTRIES[mode, dt]
+    lanes, n = strikes.shape
+    price = torch.full((lanes + 1, n), -12345.0, dtype=dt, device=cuda)
+    grad = torch.full((lanes + 1, 13) if mode == "loss" else
+                      (lanes + 1, n, 13), -12345.0, dtype=dt, device=cuda)
+    ins = [params, spots, strikes, mats, call, mkt,
+           loss_kernel.maturity_groups(mats)]
+    err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
+        *(t.contiguous().data_ptr() for t in ins), price.data_ptr(),
+        grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n, n_terms, mode_no,
+        torch.cuda.current_stream().cuda_stream)
+    wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
+            else loss_kernel.rows_jacobian)
+    a = wrap(params, spots, 0.03, strikes, mats, call, mkt, n_terms)
+    b = wrap(params, spots, 0.03, strikes, mats, call, mkt, n_terms)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((price[lanes:] == -12345.0).all())
+    assert bool((grad[lanes:] == -12345.0).all())
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(price[:lanes], a[0]) and torch.equal(grad[:lanes], a[1])

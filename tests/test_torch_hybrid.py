@@ -80,7 +80,8 @@ def test_calibrator_class_matches(data):
     cal_j = jcal.DoubleHestonJumpCalibrator(float(sp[0]), 0.03, opts,
                                             dtype=jnp.float64)
     cal_t = port.DoubleHestonJumpCalibrator(float(sp[0]), 0.03, opts,
-                                            dtype=torch.float64)
+                                            dtype=torch.float64,
+                                            device="cpu")
     starts = np.array(initial_guesses(6, jax.random.key(2), sp[0], k[0],
                                       m[0], p[0], jnp.float64))
     for x in starts:
@@ -152,7 +153,7 @@ def test_hybrid_batch_matches(data, surrogates):
                              dataclasses.asdict(cfg_j))
     polish_t = config_from_dict(tcfg.LMConfig, dataclasses.asdict(polish_j))
     out_t = thyb.hybrid_calibrate_batch_mixed(
-        s_t, sp, 0.03, k, m, c, p, cfg_t, polish=polish_t)
+        s_t, sp, 0.03, k, m, c, p, cfg_t, polish=polish_t, device="cpu")
 
     model_t = out_t.model_prices.numpy()
     np.testing.assert_allclose(model_t, out_j.model_prices, rtol=2e-4)

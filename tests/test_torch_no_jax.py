@@ -25,7 +25,7 @@ for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     if not mod.name.endswith("__main__"):
         __import__(mod.name)
 model = port.load_default_model()
-ds = port.load_dataset(sys.argv[1])
+ds = port.load_dataset(sys.argv[1], device="cpu")
 assert ds.n_samples == 2 and model.model.head.out_features == 13
 assert "torch" in sys.modules
 bad = sorted(m for m in sys.modules

@@ -92,7 +92,7 @@ def test_slice_matches_jax(surfaces, compact_min_lanes):
     spots, strikes, mats, is_call, prices = (np.array(a) for a in data)
     out_t = port.calibrate_batch_mixed(
         spots, 0.03, strikes, mats, is_call, prices, config=cfg_t,
-        polish=polish_t, x0=x0_from_numpy(x0))
+        polish=polish_t, x0=x0_from_numpy(x0), device="cpu")
     if compact_min_lanes == 1:
         assert tcal.WAVE_LANES, "the compacted waves did not run"
     else:
