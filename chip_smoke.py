@@ -8,6 +8,10 @@ Phases:
   2. build: compile csrc/ into the package's _build/ (timed);
   3. K1: float64 golden prices, K1<double>/K1<float> vs the plain PyTorch
      pricer on the card, B in {1, 17, 4096} with mixed call/put, n_opt 9;
+     then at edge shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17; mixed calls
+     and puts, all-distinct maturities, rows whose range widening binds)
+     and at 64 distinct maturities, N = 128 (over 48 KB of shared memory),
+     a guard band one row past the output, and two launches' bits;
   4. K2: loss value and gradient vs autograd of the plain loss, 15 and
      6144 lanes, N = 64, plus the sentinel lane; then K2 and K3 at edge
      shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17; mixed calls and puts,
@@ -25,7 +29,8 @@ Phases:
      path's widths;
   9. the generator: generate_dataset for 5000 surfaces at float64
      (K1<double>, N = 128) and with use_pallas (K1<float>), checked against
-     the plain pricer, the Feller cap, the ranges and the noise;
+     the plain pricer, the Feller cap, the ranges and the noise; K1 timed
+     alone on its surfaces;
  10. the shipped surrogate: predict_x on 512 surfaces, card against CPU;
  11. K2 at the hybrid's N = 128 (1024 lanes) and K2<double> (15 and 1536
      lanes, and the edge shapes) against autograd of the plain loss, then
@@ -132,12 +137,24 @@ def main():
     # ----------------------------------------------------------- 2 build --
     build_s = kernel_build.build("cos_price", "cos_vg")
     print(f"[2] build: {build_s:.1f} s (nvcc {' '.join(kernel_build.NVCC_FLAGS)})")
+    k1_spills = []
     for name in ("cos_price", "cos_vg"):
         log = kernel_build.BUILD / f"{name}.log"
         if log.exists():
+            entry = ""
             for line in log.read_text().splitlines():
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    entry = ("<double>" if "IdE" in m.group(1) else
+                             "<float>" if "IfE" in m.group(1) else "")
                 if "registers" in line or "spill" in line:
-                    print(f"[2] {name}: {line.strip()}")
+                    print(f"[2] {name}{entry}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m and name == "cos_price":
+                    k1_spills.append(int(m.group(1)))
+    print(f"[2] cos_price spill stores per entry: {k1_spills} B")
+    check(k1_spills and not any(k1_spills),
+          "K1 spills registers (ptxas reports spill stores)")
 
     # -------------------------------------------------------------- 3 K1 --
     demo = dict(v1_0=0.04, kappa1=2.0, theta1=0.04, sigma1=0.3, rho1=-0.5,
@@ -195,6 +212,115 @@ def main():
             check(out.shape == (b, 3 * n_strikes)
                   and bool(torch.isfinite(out).all()), "K1 output malformed")
             check(rel <= rtol, "K1 disagrees with its plain version")
+
+    lo_hi = np.array([(0.025, 0.080), (1.5, 4.5), (0.025, 0.065), (0.20, 0.50),
+                      (-0.85, -0.40), (0.020, 0.070), (0.30, 1.20),
+                      (0.025, 0.070), (0.10, 0.35), (-0.70, -0.20),
+                      (0.05, 0.25), (-0.08, -0.01), (0.03, 0.12)])
+
+    def k1_edge(n_lanes, n_opt, seed):
+        """K1 lanes cycling over three layouts, calls and puts mixed: short
+        maturities with in-the-money strikes far from the money and small
+        variances, where the widening of the truncation range to
+        log(K/S0) -/+ 0.1 binds (those rows are groups of their own in the
+        kernel; lane 0 is one); all maturities distinct; three
+        maturities. Every option is in or at the money and no maturity
+        passes one year: there a float32 price is not a small difference
+        of large terms, and the float32 plain version itself stays within
+        3e-5 of float64 (long in-the-money rows and short at-the-money
+        ones reach 1e-4 in either version). Returns float64 tensors and the
+        number of lanes that bind."""
+        rng = np.random.default_rng(seed)
+        params = rng.uniform(lo_hi[:, 0], lo_hi[:, 1], (n_lanes, 13))
+        kind = np.arange(n_lanes) % 3
+        params[kind == 0] *= np.where(np.isin(np.arange(13), [0, 2, 5, 7]),
+                                      0.3, 1.0)
+        r = np.arange(n_opt)
+        near = np.resize([90.0, 95.0, 100.0, 105.0, 110.0], n_opt)
+        far = np.resize([70.0, 125.0, 90.0, 80.0, 130.0], n_opt)
+        layouts = [
+            (far, np.resize([0.02, 0.02, 0.02, 0.5, 0.5], n_opt), far <= 100),
+            (near, np.linspace(0.05, 0.75, n_opt), near <= 100),
+            (near, np.sort(np.resize([0.25, 0.5, 1.0], n_opt)), near <= 100)]
+        pick = lambda i: np.stack([layouts[k][i] for k in kind])
+        prob = (t64(params), t64(100.0 + rng.uniform(-3, 3, n_lanes)),
+                t64(pick(0)), t64(pick(1)), torch.tensor(pick(2), device=dev))
+        n_mat, n_eff = opcount.effective_groups(*prob[:4])
+        return prob, int((n_eff > n_mat).sum())
+
+    def k1_vs_plain(prob, n_terms, label):
+        """Both instantiations against the plain pricer at one shape;
+        returns the largest relative error of each."""
+        rels = []
+        for dt, rtol in ((f64, 1e-11), (f32, 8e-5)):
+            args = [a.to(dt) for a in prob[:4]]
+            out = cos_kernel.price_surfaces(args[0], args[1], 0.03,
+                                            *args[2:], prob[4],
+                                            n_terms=n_terms)
+            ref = cos_kernel.price_surfaces_plain(args[0], args[1], 0.03,
+                                                  *args[2:], prob[4],
+                                                  n_terms=n_terms)
+            torch.cuda.synchronize()
+            rel = float(((out - ref).abs() / ref.abs()).max())
+            k1_err[dt] = max(k1_err[dt], float((out - ref).abs().max()))
+            check(out.shape == ref.shape and bool(torch.isfinite(out).all())
+                  and rel <= rtol, f"K1<{dt}> disagrees with its plain "
+                  f"version at {label}: {rel:.3e}")
+            rels.append(rel)
+        return rels
+
+    worst, bound_lanes = [0.0, 0.0], []
+    for n_lanes in (1, 15, 1537):
+        for n_opt in (7, 15, 17):
+            prob, n_bind = k1_edge(n_lanes, n_opt, 40 + n_lanes + n_opt)
+            check(n_bind > 0, "no K1 edge lane whose widening binds")
+            bound_lanes.append(f"{n_bind}/{n_lanes}")
+            rels = k1_vs_plain(prob, 64, f"L={n_lanes} n_opt={n_opt}")
+            worst = [max(w, r) for w, r in zip(worst, rels)]
+    print(f"[3] K1 edge shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17, N=64): "
+          f"worst rel double {worst[0]:.3e} (rtol 1e-11), float "
+          f"{worst[1]:.3e} (rtol 8e-5); lanes whose widening binds "
+          f"{bound_lanes}")
+    rng = np.random.default_rng(64)
+    wide = (t64(rng.uniform(lo_hi[:, 0], lo_hi[:, 1], (3, 13))),
+            t64([100.0, 97.0, 103.0]),
+            t64(np.tile(np.resize([80.0, 90.0, 100.0, 110.0, 120.0], 64),
+                        (3, 1))),
+            t64(np.tile(np.linspace(0.05, 0.75, 64), (3, 1))),
+            torch.tensor(np.tile(np.resize([80.0, 90.0, 100.0, 110.0, 120.0],
+                                           64) <= 100, (3, 1)), device=dev))
+    rels = k1_vs_plain(wide, 128, "64 distinct maturities")
+    print(f"[3] K1 at 64 distinct maturities x 3 lanes, N=128 (double: "
+          f"{64 * 128 * 8} B of items, over 48 KB): max rel double "
+          f"{rels[0]:.3e}, float {rels[1]:.3e}")
+
+    def k1_guard_and_bits(prob, n_terms, label):
+        """Launch the C entry on an output one row longer than needed,
+        filled with a sentinel: the tail must stay untouched and the head
+        must equal, bit for bit, two launches through the wrapper."""
+        for dt in (f64, f32):
+            args = [a.to(dt).contiguous() for a in prob[:4]]
+            b_, n_ = args[2].shape
+            out = torch.full((b_ * n_ + 1,), -12345.0, dtype=dt, device=dev)
+            err = kernel_build.entry("cos_price", cos_kernel._ENTRY[dt],
+                                     cos_kernel._ARGTYPES)(
+                *(a.data_ptr() for a in args), prob[4].contiguous().data_ptr(),
+                out.data_ptr(), 0.03, 0.0, 10.0, b_ * n_, n_, n_terms,
+                torch.cuda.current_stream().cuda_stream)
+            a = cos_kernel.price_surfaces(args[0], args[1], 0.03, *args[2:],
+                                          prob[4], n_terms=n_terms)
+            b = cos_kernel.price_surfaces(args[0], args[1], 0.03, *args[2:],
+                                          prob[4], n_terms=n_terms)
+            torch.cuda.synchronize()
+            tail_ok = float(out[-1]) == -12345.0
+            same = torch.equal(a, b) and torch.equal(out[:-1].view(b_, n_), a)
+            print(f"[3] {cos_kernel._ENTRY[dt]} {label}: guard band untouched "
+                  f"{tail_ok}, identical bits over three launches {same}")
+            check(err == 0 and tail_ok, "K1 wrote past its rows")
+            check(same, "K1 launches differ in their bits")
+
+    k1_guard_and_bits(k1_edge(15, 17, 5)[0], 64, "15 x 17 edge lanes")
+    k1_guard_and_bits(wide, 128, "64 distinct maturities")
 
     # ------------------------------------------------------- 4/5 K2, K3 --
     cfg64 = CalibrationConfig(pricer=PricerConfig(n_terms=64))
@@ -699,6 +825,17 @@ def main():
               "above the Feller cap")
         check(abs(noise.mean()) < 1e-3 and abs(noise.std() / 0.02 - 1) < 0.1,
               "generator noise is not 2 %")
+    # K1 alone on the generator's float64 surfaces (its part of the wall)
+    ds = datasets["f64"]
+    g_args = (ds.params, ds.spots, rate, ds.strikes, ds.maturities,
+              torch.ones((5000, 15), dtype=torch.bool, device=dev))
+    kernel_vs_plain(
+        "[9] cos_price_f64 generator 5000 x 15 N=128:", "cos_price_f64",
+        lambda: cos_kernel.price_surfaces(*g_args, n_terms=128),
+        lambda: cos_kernel.price_surfaces_plain(*g_args, n_terms=128),
+        opcount.cos_price_work(ds.params, ds.spots, ds.strikes,
+                               ds.maturities, g_args[5], 128, rate), f64,
+        keep=False)
 
     # ------------------------------------------------------- 10 surrogate --
     surrogate = port.load_default_model()

@@ -3,7 +3,8 @@
 // The kernels of this package evaluate the same formulas as the plain
 // PyTorch pricer (models/double_heston.py, ops/complex_math.py), in the
 // same order of operations, as __device__ templates over a scalar type S:
-//   * float and double      -> K1 (cos_price.cu), the forward price;
+//   * float and double      -> K1 (cos_price.cu, cos_price_terms.cuh), the
+//                              forward price;
 //   * Dual<T, 5>, Dual<T, 4>, Dual<T, 2>
 //                           -> K2/K3 (cos_vg.cu, cos_vg_terms.cuh): each
 //                              Heston factor with its derivatives in
@@ -276,70 +277,6 @@ __device__ __forceinline__ void factor_cumulants(
       + vv * vv * ((vb - R(2) * v0) * s_exp(R(-2) * lm * tau)
                    + vb * (R(6) * e1 - R(7)) + R(2) * v0)
       + R(8) * lm2 * (v0 - vb) * (R(1) - e1));
-}
-
-// COS truncation range [a, b], widened to log(K/S0) -/+ 0.1.
-template <typename S>
-__device__ __forceinline__ void truncation_range(
-    const S* p, typename RealOf<S>::type tau, typename RealOf<S>::type log_k,
-    typename RealOf<S>::type r, typename RealOf<S>::type L, S& a, S& b) {
-  using R = typename RealOf<S>::type;
-  S c1f1, c2f1, c1f2, c2f2;
-  factor_cumulants(tau, r, p[0], p[1], p[2], p[3], p[4], c1f1, c2f1);
-  factor_cumulants(tau, r, p[5], p[6], p[7], p[8], p[9], c1f2, c2f2);
-  const S c1 = c1f1 + c1f2 + p[10] * tau * p[11];
-  const S c2 = c2f1 + c2f2 + p[10] * tau * (p[12] * p[12] + p[11] * p[11]);
-  const S spread = L * s_sqrt(s_abs(c2));
-  a = c1 - spread;
-  b = c1 + spread;
-  const R lo = log_k - R(0.1), hi = log_k + R(0.1);
-  if (!(val(a) < lo)) a = S(lo);
-  if (!(val(b) > hi)) b = S(hi);
-}
-
-// One lane's share of a row's COS series: terms k = lane, lane + stride,
-// ... < n_terms, each with its payoff coefficient and the k = 0 half weight.
-// The caller sums the shares and multiplies by exp(-r tau).
-template <typename S>
-__device__ __forceinline__ S cos_series_share(
-    const S* p, typename RealOf<S>::type spot, typename RealOf<S>::type r,
-    typename RealOf<S>::type q, typename RealOf<S>::type strike,
-    typename RealOf<S>::type tau, bool is_call, int n_terms,
-    typename RealOf<S>::type L, int lane, int stride) {
-  using R = typename RealOf<S>::type;
-  const R log_k = s_log(strike / spot);
-  S a, b;
-  truncation_range(p, tau, log_k, r, L, a, b);
-  const S width = b - a;
-  const S step = R(3.141592653589793) / width;
-  const S c = is_call ? S(log_k) : a;
-  const S d = is_call ? b : S(log_k);
-  const S ed = s_exp(d), ec = s_exp(c);
-  const S dma = d - a, cma = c - a;
-  const S two_over = R(2) / width;
-  S acc = S(R(0));
-  for (int k = lane; k < n_terms; k += stride) {
-    const S u = R(k) * step;
-    const Cx<S> phi = char_fn(u, tau, p, r, q);
-    S chi, psi;
-    if (k == 0) {
-      chi = ed - ec;
-      psi = d - c;
-    } else {
-      S sd, cd, sc, cc;
-      s_sincos(u * dma, sd, cd);
-      s_sincos(u * cma, sc, cc);
-      chi = (cd * ed - cc * ec + u * (sd * ed - sc * ec)) / (R(1) + u * u);
-      psi = (sd - sc) / u;
-    }
-    const S v = is_call ? two_over * (spot * chi - strike * psi)
-                        : two_over * (strike * psi - spot * chi);
-    S sua, cua;
-    s_sincos(u * a, sua, cua);
-    const S term = (phi.re * cua + phi.im * sua) * v;
-    acc = acc + (k == 0 ? term * R(0.5) : term);
-  }
-  return acc;
 }
 
 }  // namespace cosm

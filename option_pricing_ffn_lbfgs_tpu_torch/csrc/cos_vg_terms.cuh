@@ -22,7 +22,7 @@ constexpr int kScratch = kItem + kParams;  // + Im d log phi / d theta_j
 // Cumulant range [a, b] of one maturity (before the per-row widening) and
 // its derivative in the 13 parameters: each factor's cumulants in
 // Dual<T, 5> over (v0, kappa, theta, sigma, rho), the jump terms in closed
-// form; the primal in truncation_range's order.
+// form; the primal in cosk1::cumulant_range's order.
 template <typename T>
 __device__ void group_range(const T* p, T tau, T rate, T L, T* a, T* b,
                             T* da, T* db) {
@@ -159,7 +159,7 @@ __device__ __forceinline__ void cf_item(const T* p, T tau, T rate, T q, T a,
 }
 
 // One row's payoff coefficients V_k(a, b) with their derivatives in a and
-// b: Dual<T, 2> seeded on (a, b), in cos_series_share's order.
+// b: Dual<T, 2> seeded on (a, b), in cosk1::PayoffRow's order.
 template <typename T>
 struct PayoffRow {
   using D2 = Dual<T, 2>;

@@ -3,7 +3,7 @@
 // constants (ITEM_OPS), and tests/test_torch_opcount.py builds it with the
 // host C++ compiler and holds them to it; it is never built for the card.
 //
-// The templates of cos_math.cuh (K1) and cos_vg_terms.cuh (K2/K3) are
+// The templates of cos_price_terms.cuh (K1) and cos_vg_terms.cuh (K2/K3) are
 // instantiated with Cnt, a scalar that carries its value, so that every
 // branch takes the side the given data takes, and whether it is a constant
 // the compiler knows, so that what the compiler folds is not counted: a
@@ -16,8 +16,11 @@
 //
 //   op_count N tau spot strike rate q L p0 .. p12
 //
-// prints one JSON object: operations per CF item, per (row, k) payoff item
-// (call and put), per row set-up, per maturity group range, and per K1 row.
+// prints one JSON object: for K2/K3, operations per CF item, per (row, k)
+// payoff item (call and put), per row set-up and per maturity group range;
+// for K1 (cos_price_terms.cuh), per maturity range, per CF item, per row
+// (log-moneyness, widening, payoff set-up, discount) and per (row, k)
+// payoff term.
 #include <cstdio>
 #include <cstdlib>
 
@@ -110,6 +113,7 @@ inline void s_sincos(const Cnt& x, Cnt& s, Cnt& c) {
 
 }  // namespace opc
 
+#include "cos_price_terms.cuh"
 #include "cos_vg_terms.cuh"
 
 namespace {
@@ -142,7 +146,8 @@ int main(int argc, char** argv) {
   Cnt p[cosvg::kParams];
   for (int i = 0; i < cosvg::kParams; ++i) p[i] = opc::var(in[6 + i]);
 
-  Tally range, item, setup[2], term[2], k1[2];
+  Tally range, item, setup[2], term[2];
+  Tally k1_range, k1_item, k1_setup[2], k1_term[2];
   Cnt a, b, da[cosvg::kParams], db[cosvg::kParams];
   range.start();
   cosvg::group_range(p, tau, rate, L, &a, &b, da, db);
@@ -167,22 +172,58 @@ int main(int argc, char** argv) {
     for (int k = 0; k < n; ++k)
       cosvg::add_row_term(acc, items, n, k, pay.v(k));
     term[call].stop();
-    k1[call].start();
-    cosm::cos_series_share(p, spot, rate, q, strike, tau, call != 0, n, L, 0,
-                           1);
-    k1[call].stop();
   }
   delete[] items;
+
+  // K1: a maturity's range, its CF items, and each row's own work.
+  Cnt ga, gb, ka, kb;
+  k1_range.start();
+  cosk1::cumulant_range(p, tau, rate, L, ga, gb);
+  k1_range.stop();
+  opc::g_ops = 0;
+  const Cnt k1_log_k = opc::s_log(strike / spot);
+  cosk1::widen(ga, gb, k1_log_k, ka, kb);
+  const long row_ops = opc::g_ops;
+  ka = opc::var(ka.v);                   // a stored range: not a constant
+  kb = opc::var(kb.v);
+  Cnt* k1_items = new Cnt[n];
+  k1_item.start();
+  for (int k = 0; k < n; ++k)
+    k1_items[k] = cosk1::cf_item(p, tau, rate, q, ka, kb, k);
+  k1_item.stop();
+  for (int call = 0; call < 2; ++call) {
+    k1_setup[call].start();
+    const cosk1::PayoffRow<Cnt> pay(ka, kb, k1_log_k, spot, strike,
+                                    call != 0);
+    k1_setup[call].stop();
+    Cnt sum = opc::var(0.0);
+    k1_term[call].start();
+    for (int k = 0; k < n; ++k)
+      sum = cosk1::add_term(sum, k1_items[k], pay.v(k), k);
+    k1_term[call].stop();
+    k1_setup[call].start();
+    cosk1::discounted(sum, rate, tau);
+    k1_setup[call].stop();
+    k1_setup[call].ops += row_ops;
+  }
+  delete[] k1_items;
   std::printf(
       "{\"n_terms\": %d, \"group_range\": %ld, \"group_range_special\": %ld, "
       "\"cf_item\": %.6f, \"cf_item_special\": %.6f, "
       "\"row_setup_put\": %ld, \"row_setup_call\": %ld, "
       "\"payoff_term_put\": %.6f, \"payoff_term_call\": %.6f, "
       "\"payoff_term_special\": %.6f, "
-      "\"k1_row_put\": %ld, \"k1_row_call\": %ld, \"k1_row_special\": %ld}\n",
+      "\"k1_range\": %ld, \"k1_range_special\": %ld, "
+      "\"k1_cf_item\": %.6f, \"k1_cf_item_special\": %.6f, "
+      "\"k1_row_setup_put\": %ld, \"k1_row_setup_call\": %ld, "
+      "\"k1_payoff_term_put\": %.6f, \"k1_payoff_term_call\": %.6f, "
+      "\"k1_payoff_term_special\": %.6f}\n",
       n, range.ops, range.special, double(item.ops) / n,
       double(item.special) / n, setup[0].ops, setup[1].ops,
       double(term[0].ops) / n, double(term[1].ops) / n,
-      double(term[1].special) / n, k1[0].ops, k1[1].ops, k1[1].special);
+      double(term[1].special) / n, k1_range.ops, k1_range.special,
+      double(k1_item.ops) / n, double(k1_item.special) / n,
+      k1_setup[0].ops, k1_setup[1].ops, double(k1_term[0].ops) / n,
+      double(k1_term[1].ops) / n, double(k1_term[1].special) / n);
   return 0;
 }

@@ -2,16 +2,22 @@
 
 ``price_surfaces`` prices ``[B, n_opt]`` (surface, option) rows under
 per-surface parameters. On a CUDA tensor it launches the hand-written
-kernel ``csrc/cos_price.cu`` (one warp per row, the N COS terms strided
-over the lanes, a shuffle reduction); on a CPU tensor it runs the plain
-PyTorch version, ``price_surfaces_plain`` (the batched ``price_options``).
-There is no fallback between the two: a CUDA tensor either launches the
-kernel or raises.
+kernel ``csrc/cos_price.cu``: one block per surface finds the surface's
+maturity groups itself (equal tau), computes each maturity's truncation
+range once and each group's characteristic-function items once, in
+shared memory; a row whose range widening binds is a group of its own.
+Each warp then prices a row, the N COS terms strided over its lanes and
+summed by a shuffle tree, in the order of a row priced alone (with fewer
+surfaces than SMs, a surface's rows are split over blocks). On a CPU
+tensor it runs the plain PyTorch version, ``price_surfaces_plain`` (the
+batched ``price_options``). There is no fallback between the two: a CUDA
+tensor either launches the kernel or raises. No grouping is computed on
+the host.
 
 Replaces ``option_pricing_ffn_lbfgs_tpu/ops/cos_pallas.py::
 price_surfaces_pallas`` (float32 only there). On the calibration path
-K1<double> prices the LM polish residuals and K1<float> reprices the search
-winner.
+K1<double> prices the LM polish residuals and the generator's surfaces,
+K1<float> reprices the search winner.
 """
 from __future__ import annotations
 

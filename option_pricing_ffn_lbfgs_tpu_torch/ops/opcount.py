@@ -14,7 +14,9 @@ count each input byte read once and each output byte written once:
     where a lane's effective groups are its maturities plus one group for
     each row whose widening to log(K/S0) -/+ 0.1 binds; one payoff item per
     (row, k); one range per (lane, maturity);
-  * K1: one row of the COS series per (lane, option) row.
+  * K1: the same grouping without derivatives: one range per (surface,
+    maturity), one CF item per (surface, effective group, k), one payoff
+    term per (row, k) and the row's own set-up.
 
 ``bound_ms`` is the larger of operations over the card's peak rate for
 their type and bytes over its memory rate (NVIDIA H100 SXM data sheet:
@@ -38,12 +40,16 @@ MEM_BYTES_PER_S = 3.35e12
 ITEM_OPS = {
     64: {"group_range": 425, "cf_item": 1519.109375, "row_setup_call": 13,
          "row_setup_put": 13, "payoff_term_call": 133.375,
-         "payoff_term_put": 130.4375, "k1_row_call": 16964,
-         "k1_row_put": 16964},
+         "payoff_term_put": 130.4375, "k1_range": 153,
+         "k1_cf_item": 239.765625, "k1_row_setup_call": 14,
+         "k1_row_setup_put": 14, "k1_payoff_term_call": 25.71875,
+         "k1_payoff_term_put": 25.71875},
     128: {"group_range": 425, "cf_item": 1528.554688, "row_setup_call": 13,
           "row_setup_put": 13, "payoff_term_call": 134.1875,
-          "payoff_term_put": 131.21875, "k1_row_call": 33924,
-          "k1_row_put": 33924},
+          "payoff_term_put": 131.21875, "k1_range": 153,
+          "k1_cf_item": 240.882812, "k1_row_setup_call": 14,
+          "k1_row_setup_put": 14, "k1_payoff_term_call": 25.859375,
+          "k1_payoff_term_put": 25.859375},
 }
 
 
@@ -61,8 +67,8 @@ def _cumulant_range(params: torch.Tensor, tau, rate, L):
 
 
 def effective_groups(params, spots, strikes, maturities, rate=0.03, L=10.0):
-    """Per lane: (maturity groups, effective groups) as the K2/K3 kernel
-    forms them; a row whose widening binds is a group of its own."""
+    """Per lane: (maturity groups, effective groups) as the K1 and K2/K3
+    kernels form them; a row whose widening binds is a group of its own."""
     params, spots, strikes, maturities = (
         torch.as_tensor(t, dtype=torch.float64)
         for t in (params, spots, strikes, maturities))
@@ -104,15 +110,24 @@ def cos_vg_work(params, spots, strikes, maturities, is_call, mkt,
     return {"ops": ops, "bytes": nbytes, "effective_groups": int(n_eff.sum())}
 
 
-def cos_price_work(params, spots, strikes, maturities, is_call, n_terms: int):
+def cos_price_work(params, spots, strikes, maturities, is_call, n_terms: int,
+                   rate=0.03, L=10.0):
     """Operations and bytes of one K1 launch on these inputs."""
     c = ITEM_OPS[n_terms]
+    n_mat, n_eff = effective_groups(params, spots, strikes, maturities,
+                                    rate, L)
     calls = int(is_call.sum())
-    ops = calls * c["k1_row_call"] + (is_call.numel() - calls) * c["k1_row_put"]
+    puts = is_call.numel() - calls
+    ops = (int(n_mat.sum()) * c["k1_range"]
+           + int(n_eff.sum()) * n_terms * c["k1_cf_item"]
+           + calls * (c["k1_row_setup_call"]
+                      + n_terms * c["k1_payoff_term_call"])
+           + puts * (c["k1_row_setup_put"]
+                     + n_terms * c["k1_payoff_term_put"]))
     nbytes = (sum(_size(t) for t in (params, spots, strikes, maturities,
                                      is_call))
               + strikes.numel() * params.element_size())
-    return {"ops": ops, "bytes": nbytes}
+    return {"ops": ops, "bytes": nbytes, "effective_groups": int(n_eff.sum())}
 
 
 def bound_ms(work: Dict[str, float], dtype: torch.dtype):

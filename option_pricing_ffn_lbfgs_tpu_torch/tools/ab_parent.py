@@ -1,6 +1,7 @@
 """This tree's port against another checkout's, in turns on one card.
 
     python3 -m option_pricing_ffn_lbfgs_tpu_torch.tools.ab_parent PARENT_DIR
+        [--kernels]
 
 ``PARENT_DIR`` is an unpacked checkout of another commit (``git archive``
 into a git-ignored directory). Each side runs in a process of its own with
@@ -8,12 +9,17 @@ its tree first on ``sys.path``: it imports its own package, builds its own
 kernels into its own ``_build/`` and launches them through its own wrappers,
 so nothing here depends on a kernel's C interface. Both trees must have the
 public names used below: the entry points, the configs,
-``calibrator.POLISH_LM``, the wrappers ``loss_kernel.rows_value_and_grad`` /
-``rows_jacobian`` and the ``LAUNCHES`` counts. The sides run in turns
-(parent, this, this, parent); each run prints
+``calibrator.POLISH_LM``, the wrappers ``port.price_surfaces`` (K1),
+``loss_kernel.rows_value_and_grad`` / ``rows_jacobian`` (K2/K3) and the
+``LAUNCHES`` counts. The sides run in turns (parent, this, this, parent);
+each run prints
 
   1. wrapper times (CUDA events, best of two) at the main path's widths and
-     at 15 lanes;
+     at 15 lanes, the kernel's own device time (torch.profiler; at 15 lanes
+     the events time the host's launches), and a hash of each wrapper's
+     output bytes (equal hashes
+     across the two trees: identical bits; otherwise the largest relative
+     difference is printed);
   2. the mean pricing error and the wall (CUDA events) of
      ``calibrate_batch_mixed`` on 512 Feller-capped surfaces x 3 starts,
      over 8 (problem, start) seed pairs;
@@ -21,14 +27,17 @@ public names used below: the entry points, the configs,
      trips, error;
   4. the bench twin (6 sets x 5 surfaces): host wall per surface;
 
-and the lines marked ``[ab]`` compare the sides over all their runs.
+and the lines marked ``[ab]`` compare the sides over all their runs. With
+``--kernels`` each run stops after part 1.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -39,9 +48,17 @@ RANGES = np.array([(0.025, 0.080), (1.5, 4.5), (0.025, 0.065), (0.20, 0.50),
                    (0.05, 0.25), (-0.08, -0.01), (0.03, 0.12)])
 STRIKES = np.tile([90.0, 95.0, 100.0, 105.0, 110.0], 3)
 MATS = np.repeat([0.25, 0.5, 1.0], 5)
-# (label, wrapper, lanes, dtype, N): the search and polish at 512 x 3, the
-# hybrid's refine and polish, one surface's 15 lanes, K2<double>
-KERNEL_CASES = (("K2", "loss", 1536, "float32", 64),
+# (label, wrapper, lanes, dtype, N): the polish residual at 512 x 3 and at
+# one surface's 15 lanes, the generator's 5000 surfaces, the winner's
+# repricing; the search and polish at 512 x 3, the hybrid's refine and
+# polish, 15 lanes, K2<double>
+KERNEL_CASES = (("K1<double>", "price", 1536, "float64", 64),
+                ("K1<double>", "price", 15, "float64", 64),
+                ("K1<double>", "price", 5000, "float64", 128),
+                ("K1<float>", "price", 512, "float32", 64),
+                ("K1<float>", "price", 1536, "float32", 64),
+                ("K1<float>", "price", 15, "float32", 64),
+                ("K2", "loss", 1536, "float32", 64),
                 ("K3", "jac", 1536, "float32", 64),
                 ("K2", "loss", 1024, "float32", 128),
                 ("K3", "jac", 512, "float32", 64),
@@ -51,8 +68,9 @@ KERNEL_CASES = (("K2", "loss", 1536, "float32", 64),
                 ("K2<double>", "loss", 1536, "float64", 128))
 
 
-def measure() -> dict:
-    """One side's run, in the package found first on ``sys.path``."""
+def measure(outputs: str, kernels_only: bool) -> dict:
+    """One side's run, in the package found first on ``sys.path``; the
+    wrappers' outputs are saved to ``outputs`` (.npz)."""
     import dataclasses
     import time
 
@@ -67,32 +85,75 @@ def measure() -> dict:
         CudaTimer, cuda_time_ms)
 
     dev, f64 = torch.device("cuda"), torch.float64
-    out = {"kernels": {}, "means": [], "walls": [], "hybrid": [], "twin": 0.0}
+    out = {"kernels": {}, "device": {}, "hashes": {}, "means": [],
+           "walls": [], "hybrid": [], "twin": 0.0}
 
-    # 1. wrapper times
+    def kernel_ms(fn, n=20):
+        """Device ms of one launch of the K1/K2/K3 kernel ``fn`` launches
+        (one a call), from torch.profiler: the kernel alone, without the
+        host's launch time, which sets the event time where the kernel is
+        shorter. Averaged over the launches traced; None if none was."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if "cos_price_kernel" in e.key or "cos_vg_kernel" in e.key]
+        count = sum(e.count for e in ev)
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) for e in ev)
+        return us / count / 1e3 if count else None
+
+    # 1. wrapper times and output hashes
     rng = np.random.default_rng(0)
+    saved = {}
     for label, mode, lanes, dt, n_terms in KERNEL_CASES:
         dt = getattr(torch, dt)
         t = lambda a: torch.tensor(a, dtype=dt, device=dev)
         params = t(rng.uniform(RANGES[:, 0], RANGES[:, 1], (lanes, 13)))
-        spots, strikes, mats = (t(np.full(lanes, 100.0)),
+        spots, strikes, mats = (t(100.0 + rng.uniform(-3, 3, lanes)),
                                 t(np.tile(STRIKES, (lanes, 1))),
                                 t(np.tile(MATS, (lanes, 1))))
-        call = torch.ones((lanes, 15), dtype=torch.bool, device=dev)
-        mkt = port.price_surfaces(params, spots, 0.03, strikes, mats,
-                                  call) * 1.2
-        # a tree whose wrappers take the rows' maturity groups gets them
-        # computed once, as its host assembly does
-        kw = ({"groups": loss_kernel.maturity_groups(mats)}
-              if hasattr(loss_kernel, "maturity_groups") else {})
-        wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
-                else loss_kernel.rows_jacobian)
-        fn = lambda: wrap(params, spots, 0.03, strikes, mats, call, mkt,
-                          n_terms, **kw)
+        if mode == "price":   # K1: calls and puts, as the generator prices
+            call = torch.tensor(np.tile(np.arange(15) % 3 != 0, (lanes, 1)),
+                                device=dev)
+            fn = lambda: port.price_surfaces(params, spots, 0.03, strikes,
+                                             mats, call, n_terms=n_terms)
+        else:
+            call = torch.ones((lanes, 15), dtype=torch.bool, device=dev)
+            # quotes from the plain pricer on the host, so that K2/K3's
+            # inputs do not depend on either tree's K1
+            mkt = port.price_surfaces(*(a.cpu() for a in (
+                params, spots)), 0.03, *(a.cpu() for a in (
+                    strikes, mats, call))).to(dev) * 1.2
+            # a tree whose wrappers take the rows' maturity groups gets
+            # them computed once, as its host assembly does
+            kw = ({"groups": loss_kernel.maturity_groups(mats)}
+                  if hasattr(loss_kernel, "maturity_groups") else {})
+            wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
+                    else loss_kernel.rows_jacobian)
+            fn = lambda: wrap(params, spots, 0.03, strikes, mats, call, mkt,
+                              n_terms, **kw)
         ms = min(cuda_time_ms(fn), cuda_time_ms(fn))
+        dev_ms = kernel_ms(fn)
+        res = fn()
+        res = [r.cpu().numpy() for r in (res if isinstance(res, tuple)
+                                         else (res,))]
         key = f"{label} L={lanes} N={n_terms}"
+        digest = hashlib.sha256(b"".join(r.tobytes() for r in res))
         out["kernels"][key] = ms
-        print(f"[1] {key}: {ms:.4f} ms", flush=True)
+        out["device"][key] = dev_ms
+        out["hashes"][key] = digest.hexdigest()[:16]
+        for i, r in enumerate(res):
+            saved[f"{key} #{i}"] = r
+        print(f"[1] {key}: {ms:.4f} ms (kernel alone {dev_ms} ms), "
+              f"outputs {out['hashes'][key]}", flush=True)
+    np.savez(outputs, **saved)
+    if kernels_only:
+        return out
 
     cfg = CalibrationConfig(search_impl="pallas", polish_impl="pallas",
                             polish_fused_min_lanes=1)
@@ -177,12 +238,12 @@ def measure() -> dict:
     return out
 
 
-def run_side(tree: Path, label: str) -> dict:
+def run_side(tree: Path, label: str, outputs: str, flags) -> dict:
     """``measure()`` in a fresh process that imports ``tree``'s package."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(tree)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--measure"], cwd=tree, env=env,
+                           "--measure", outputs, *flags], cwd=tree, env=env,
                           capture_output=True, text=True)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
@@ -193,23 +254,47 @@ def run_side(tree: Path, label: str) -> dict:
     return json.loads(lines[-1])
 
 
+def _rel(a, b) -> float:
+    """Largest |a - b| / |b| over the entries where b is not 0."""
+    nz = b != 0
+    return float(np.max(np.abs(a[nz] - b[nz]) / np.abs(b[nz]), initial=0.0))
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv == ["--measure"]:
-        print(json.dumps(measure()))
+    if argv[:1] == ["--measure"]:
+        print(json.dumps(measure(argv[1], "--kernels" in argv)))
         return
+    kernels_only = "--kernels" in argv
     trees = {"parent": Path(argv[0]).resolve(),
              "this": Path(__file__).resolve().parents[2]}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     runs = {"parent": [], "this": []}
-    for side in ("parent", "this", "this", "parent"):
-        runs[side].append(run_side(trees[side], side))
-    for key in runs["this"][0]["kernels"]:
-        best = {s: min(r["kernels"][key] for r in runs[s]) for s in runs}
-        print(f"[ab] {key}: parent {best['parent']:.4f} ms, this "
-              f"{best['this']:.4f} ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"parent": [], "this": []}
+        for i, side in enumerate(("parent", "this", "this", "parent")):
+            files[side].append(os.path.join(tmp, f"{side}{i}.npz"))
+            runs[side].append(run_side(trees[side], side, files[side][-1],
+                                       ["--kernels"] if kernels_only else []))
+        outs = {s: dict(np.load(f[0])) for s, f in files.items()}
+        for key in runs["this"][0]["kernels"]:
+            best = {s: min(r["kernels"][key] for r in runs[s]) for s in runs}
+            alone = {s: min((r["device"][key] for r in runs[s]
+                             if r["device"][key] is not None), default=None)
+                     for s in runs}
+            hashes = {s: {r["hashes"][key] for r in runs[s]} for s in runs}
+            same = len(hashes["parent"] | hashes["this"]) == 1
+            diff = "identical bits" if same else "largest relative difference " \
+                + ", ".join(f"{_rel(outs['this'][k], outs['parent'][k]):.3e}"
+                            for k in outs["this"] if k.startswith(key + " #"))
+            print(f"[ab] {key}: parent {best['parent']:.4f} ms, this "
+                  f"{best['this']:.4f} ms (kernel alone {alone['parent']} -> "
+                  f"{alone['this']} ms); outputs {diff} (hashes parent "
+                  f"{sorted(hashes['parent'])}, this {sorted(hashes['this'])})")
+    if kernels_only:
+        return
     for side, rs in runs.items():
         walls = [w for r in rs for w in r["walls"]]
         means = rs[0]["means"]

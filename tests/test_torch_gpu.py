@@ -8,7 +8,9 @@ card and without JAX they run as
 
 Tolerances: K1<double> 1e-11 relative (same formulas and order as the
 plain pricer; libm rounding only) and the reference goldens to 1e-9;
-K1<float> 8e-5 relative (the JAX Pallas tests' float32 bar); K2/K3 prices
+K1<float> 8e-5 relative (the JAX Pallas tests' float32 bar), also at the
+edge shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17, and 64 distinct
+maturities at N = 128, over 48 KB of shared memory in double); K2/K3 prices
 8e-5 relative and gradient/Jacobian rows 5e-3 after scaling by their
 largest entry (tests/test_loss_pallas.py's tolerances). At the edge shapes
 (lanes 1, 15, 1537 x n_opt 7, 15, 17) the loss and its gradient are held
@@ -113,6 +115,102 @@ def test_k1_matches_plain(cuda, dt, rtol, b, n_strikes):
     assert out.shape == (b, 3 * n_strikes) and out.dtype == dt
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=rtol)
+
+
+def _k1_edge(n_lanes, n_opt, seed, device):
+    """K1 lanes cycling over three layouts, calls and puts mixed: short
+    maturities with in-the-money strikes far from the money and small
+    variances, where the widening of the truncation range to
+    log(K/S0) -/+ 0.1 binds (lane 0 is one); all maturities distinct; three
+    maturities. Every option is in or at the money and no maturity passes
+    one year, so float32 prices are not small differences of large terms
+    (chip_smoke.py phase 3 uses the same layouts). Returns float64 tensors
+    and the number of lanes that bind."""
+    rng = np.random.default_rng(seed)
+    params = rng.uniform(LO, HI, (n_lanes, 13))
+    kind = np.arange(n_lanes) % 3
+    params[kind == 0] *= np.where(np.isin(np.arange(13), [0, 2, 5, 7]), 0.3,
+                                  1.0)
+    near = np.resize(STRIKES[:5], n_opt)
+    far = np.resize([70.0, 125.0, 90.0, 80.0, 130.0], n_opt)
+    layouts = [(far, np.resize([0.02, 0.02, 0.02, 0.5, 0.5], n_opt),
+                far <= 100),
+               (near, np.linspace(0.05, 0.75, n_opt), near <= 100),
+               (near, np.sort(np.resize(MATS[::5], n_opt)), near <= 100)]
+    pick = lambda i: np.stack([layouts[k][i] for k in kind])
+    t = lambda a: torch.tensor(np.asarray(a), dtype=F64, device=device)
+    prob = (t(params), t(100.0 + rng.uniform(-3, 3, n_lanes)), t(pick(0)),
+            t(pick(1)), torch.tensor(pick(2), device=device))
+    n_mat, n_eff = opcount.effective_groups(*prob[:4])
+    return prob, int((n_eff > n_mat).sum())
+
+
+def _k1_wide(device):
+    """Three surfaces of 64 options at 64 distinct maturities: at N = 128
+    the double kernel's items take 64 KB of shared memory."""
+    rng = np.random.default_rng(64)
+    ks = np.resize([80.0, 90.0, 100.0, 110.0, 120.0], 64)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=F64, device=device)
+    return (t(rng.uniform(LO, HI, (3, 13))), t([100.0, 97.0, 103.0]),
+            t(np.tile(ks, (3, 1))), t(np.tile(np.linspace(0.05, 0.75, 64),
+                                              (3, 1))),
+            torch.tensor(np.tile(ks <= 100, (3, 1)), device=device))
+
+
+def _k1_check(prob, dt, rtol, n_terms):
+    args = [a.to(dt) for a in prob[:4]]
+    out = cos_kernel.price_surfaces(args[0], args[1], 0.03, *args[2:],
+                                    prob[4], n_terms=n_terms)
+    ref = cos_kernel.price_surfaces_plain(args[0], args[1], 0.03, *args[2:],
+                                          prob[4], n_terms=n_terms)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dt
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("n_lanes", [1, 15, 1537])
+@pytest.mark.parametrize("n_opt", [7, 15, 17])
+@pytest.mark.parametrize("dt,rtol", [(F64, 1e-11), (F32, 8e-5)],
+                         ids=["double", "float"])
+def test_k1_edge_shapes_match_plain(cuda, dt, rtol, n_opt, n_lanes):
+    """K1 with all-distinct maturities and rows whose widening binds (each
+    its own group in the kernel) against the plain pricer."""
+    prob, n_bind = _k1_edge(n_lanes, n_opt, 40 + n_lanes + n_opt, cuda)
+    assert n_bind > 0
+    _k1_check(prob, dt, rtol, 64)
+
+
+@pytest.mark.parametrize("dt,rtol", [(F64, 1e-11), (F32, 8e-5)],
+                         ids=["double", "float"])
+def test_k1_large_shared_memory(cuda, dt, rtol):
+    _k1_check(_k1_wide(cuda), dt, rtol, 128)
+
+
+@pytest.mark.parametrize("shape", ["edge", "wide"])
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_k1_guard_band_and_identical_bits(cuda, dt, shape):
+    """The C entry, called on an output one row longer than needed and
+    filled with a sentinel, leaves the tail untouched; its rows equal, bit
+    for bit, two launches through the wrapper."""
+    prob, n_terms = ((_k1_edge(15, 17, 5, cuda)[0], 64) if shape == "edge"
+                     else (_k1_wide(cuda), 128))
+    args = [a.to(dt).contiguous() for a in prob[:4]]
+    b, n = args[2].shape
+    out = torch.full((b * n + 1,), -12345.0, dtype=dt, device=cuda)
+    err = kernel_build.entry("cos_price", cos_kernel._ENTRY[dt],
+                             cos_kernel._ARGTYPES)(
+        *(a.data_ptr() for a in args), prob[4].contiguous().data_ptr(),
+        out.data_ptr(), 0.03, 0.0, 10.0, b * n, n, n_terms,
+        torch.cuda.current_stream().cuda_stream)
+    first = cos_kernel.price_surfaces(args[0], args[1], 0.03, *args[2:],
+                                      prob[4], n_terms=n_terms)
+    second = cos_kernel.price_surfaces(args[0], args[1], 0.03, *args[2:],
+                                       prob[4], n_terms=n_terms)
+    torch.cuda.synchronize()
+    assert err == 0 and float(out[-1]) == -12345.0
+    assert torch.equal(first, second)
+    assert torch.equal(out[:-1].view(b, n), first)
 
 
 @pytest.mark.parametrize("mode", ["loss", "jac"])

@@ -88,12 +88,14 @@ def test_item_counts_are_consistent(tmp_path):
                 check=True, capture_output=True, text=True).stdout)
             assert {k: out[k] for k in want} == pytest.approx(want)
             assert 0 < out["cf_item_special"] < out["cf_item"]
-    c64, c128 = opcount.ITEM_OPS[64], opcount.ITEM_OPS[128]
+            assert 0 < out["k1_cf_item_special"] < out["k1_cf_item"]
+    c64 = opcount.ITEM_OPS[64]
     assert 0 < c64["payoff_term_call"] < c64["cf_item"]
     assert 0 < c64["group_range"] < c64["cf_item"]
-    # a K1 row is linear in the number of terms (plus its range)
-    per_term = (c128["k1_row_call"] - c64["k1_row_call"]) / 64
-    assert c64["k1_row_call"] == pytest.approx(64 * per_term, rel=0.05)
+    # K1's items are K2/K3's primal parts: the same transcendentals, none
+    # of the derivatives
+    assert 0 < c64["k1_payoff_term_call"] < c64["k1_cf_item"] < c64["cf_item"]
+    assert 0 < c64["k1_range"] < c64["group_range"]
 
 
 def test_work_scales_with_items():
@@ -109,8 +111,39 @@ def test_work_scales_with_items():
     assert two["bytes"] > 2 * one["bytes"]       # K3 writes every row
     k1 = opcount.cos_price_work(params, spots, strikes, mats, call, 64)
     assert k1["ops"] > 0 and k1["bytes"] == 3 * 13 * 8 + 3 * 8 + 45 * 25
+    two = opcount.cos_price_work(params[[0, 0]], spots[[0, 0]],
+                                 strikes[[0, 0]], mats[[0, 0]], call[:2], 64)
+    assert two["ops"] == 2 * opcount.cos_price_work(
+        params[:1], spots[:1], strikes[:1], mats[:1], call[:1], 64)["ops"]
     ms, by = opcount.bound_ms(one, torch.float32)
     assert by == "operations" and ms == pytest.approx(
         one["ops"] / 67e12 * 1e3)
     assert opcount.bound_ms({"ops": 0, "bytes": 3.35e9}, F64) == (1.0,
                                                                  "bytes")
+
+
+@pytest.mark.parametrize("n_terms", [64, 128])
+def test_k1_work_counts_shared_items(n_terms):
+    """K1's work: a range per (lane, maturity), CF items per (lane,
+    effective group, k), a payoff term per (row, k). On the 5 x 3 surface
+    with no binding widening that is about 3.6x less than a CF per row."""
+    params, spots, strikes, mats = _lanes()
+    call = torch.tensor([[True, False, True] * 5] * 3)
+    c = opcount.ITEM_OPS[n_terms]
+    work = opcount.cos_price_work(params, spots, strikes, mats, call,
+                                  n_terms)
+    n_mat, n_eff = opcount.effective_groups(params, spots, strikes, mats)
+    calls = int(call.sum())
+    assert work["effective_groups"] == int(n_eff.sum()) == 3 + 15 + int(
+        n_eff[1])
+    assert work["ops"] == pytest.approx(
+        int(n_mat.sum()) * c["k1_range"]
+        + int(n_eff.sum()) * n_terms * c["k1_cf_item"]
+        + calls * (c["k1_row_setup_call"] + n_terms * c["k1_payoff_term_call"])
+        + (45 - calls) * (c["k1_row_setup_put"]
+                          + n_terms * c["k1_payoff_term_put"]))
+    lane0 = opcount.cos_price_work(params[:1], spots[:1], strikes[:1],
+                                   mats[:1], call[:1], n_terms)["ops"]
+    per_row = (c["k1_range"] + c["k1_row_setup_call"]
+               + n_terms * (c["k1_cf_item"] + c["k1_payoff_term_call"]))
+    assert 3.3 < 15 * per_row / lane0 < 3.8
