@@ -38,9 +38,19 @@ Phases:
  12. the hybrid: hybrid_calibrate_batch_mixed on 512 noiseless surfaces
      (every surface must beat its FFN-only error, mean <= 0.03 %);
  13. the entry points through cli.main: demo, generate, calibrate (float32
-     and --f64), benchmark, compare --n-eval 10.
+     and --f64), benchmark, compare --n-eval 10 (without --surrogate, so it
+     quick-trains one), train --n-pretrain 5000 --epochs 5;
+ 14. the training path: tools/train_pipeline.py at the published size
+     (100,000 pretraining surfaces, 1,000 fine-tune calibrations; at least
+     100 kept, best pretrain val loss below 1), its files loaded back
+     (pickle and state checkpoint give the same predictions), the new
+     surrogate served by the hybrid on 512 held-out noiseless surfaces
+     (every surface beats its FFN-only error, mean <= 0.03 %); stage walls,
+     epochs, ms per train step and samples/s, the device busy share over
+     50 train steps (torch.profiler); one dropout-free epoch of fit on the
+     card against the CPU from the same init (val loss within 1e-3).
 
-Each main-path run (phases 6, 9, 12, 13) is driven with the launch counts
+Each main-path run (phases 6, 9, 12, 13, 14) is driven with the launch counts
 set to 0 just before it and read just after; every kernel it should run
 must have launched. The per-kernel record's "launches" is the sum over
 those runs. Any failure exits non-zero. The last line is the JSON device
@@ -988,7 +998,7 @@ def main():
               "benchmark failed")
         rc, text = drive(13, lambda: cli_run(["compare", "--n-eval", "10",
                                               "--out-dir", tmp]), all4)
-        summary = json.loads(text[:text.rindex("}") + 1])
+        summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
         print(f"[13] compare --n-eval 10: {json.dumps(summary)}")
         names = ("lbfgs_actual_results.json", "hybrid_actual_results.json",
                  "COMPARISON_TABLE.txt")
@@ -997,6 +1007,156 @@ def main():
         check(summary["hybrid_mean_error_pct"] <= 0.03
               and summary["lbfgs_mean_error_pct"] <= 0.03,
               "compare: mean error above 0.03 %")
+        check("quick-training" in text, "compare did not quick-train")
+        ffn_pkl = os.path.join(tmp, "ffn.pkl")
+        t0 = time.perf_counter()
+        rc, text = drive(13, lambda: cli_run(
+            ["train", "--n-pretrain", "5000", "--epochs", "5", "--out",
+             ffn_pkl]), ["cos_price_f64"])
+        print(f"[13] train --n-pretrain 5000 --epochs 5: "
+              f"{time.perf_counter() - t0:.2f} s; {text.strip()}")
+        x = port.load_surrogate(ffn_pkl).predict_x(ds.model_prices[:8],
+                                                   ds.spots[:8])
+        check(rc == 0 and x.shape == (8, 13)
+              and bool(torch.isfinite(x).all()), "train failed")
+
+    # ------------------------------------------------------- 14 training --
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate import ffn as ffn_mod
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate import train as tr
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate.scalers import (
+        StandardScaler)
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import train_pipeline
+    from option_pricing_ffn_lbfgs_tpu_torch.utils import checkpoint
+    card = f"({smi})"
+    with tempfile.TemporaryDirectory() as tmp:
+        res = drive(14, lambda: train_pipeline.train_pipeline(
+            tmp, n_pretrain=100_000, n_finetune=1000), all4)
+        h_pre, h_fine = res.history["pretrain"], res.history["finetune"]
+        best_pre = min(h_pre["val_loss"])
+        steps_pre = len(h_pre["val_loss"]) * (int(100_000 * 0.85) // 256)
+        print(f"[14] pipeline 100000 / 1000 {card}: stage walls "
+              f"{json.dumps({k: round(v, 3) for k, v in res.stage_s.items()})}"
+              f" s, total {res.history['provenance']['wall_s']} s; epochs "
+              f"pretrain {len(h_pre['val_loss'])}, finetune "
+              f"{len(h_fine['val_loss'])}; best val pretrain {best_pre:.5f} "
+              f"(JAX record 0.9019), finetune {min(h_fine['val_loss']):.5f}; "
+              f"kept {res.n_kept}/1000, converged "
+              f"{res.history['provenance']['finetune_converged']}; pretrain "
+              f"wall per step {1e3 * res.stage_s['pretrain'] / steps_pre:.3f}"
+              f" ms (eval and gathers included)")
+        check(res.n_kept >= 100, "fewer than 100 fine-tune rows kept")
+        check(best_pre < 1.0, "pretraining does not beat the mean")
+        loaded = port.load_surrogate(os.path.join(tmp, "models",
+                                                  "ffn_surrogate.pkl"))
+        checkpoint.save_surrogate_state(os.path.join(tmp, "state"),
+                                        res.surrogate)
+        restored = checkpoint.load_surrogate_state(os.path.join(tmp,
+                                                                "state"))
+        for name in ("models/training_history.json", "data/scalers.pkl",
+                     "data/finetune_calibrations.npz"):
+            check(os.path.exists(os.path.join(tmp, name)), f"no {name}")
+
+    held = port.generate_dataset(torch.Generator(dev).manual_seed(2027),
+                                 GeneratorConfig(n_samples=512), dtype=f64,
+                                 device=dev)
+    x_pkl = loaded.predict_x(held.model_prices, held.spots)
+    same = (torch.equal(x_pkl, restored.predict_x(held.model_prices,
+                                                  held.spots))
+            and torch.equal(x_pkl, res.surrogate.predict_x(
+                held.model_prices, held.spots)))
+    print(f"[14] files load back: pickle, state checkpoint and the returned "
+          f"surrogate predict identical bits {same}")
+    check(same, "the saved surrogates predict differently")
+    n_h = 512
+    h_args = (held.spots, 0.03, held.strikes, held.maturities,
+              torch.ones((n_h, 15), dtype=torch.bool, device=dev),
+              held.model_prices)
+
+    def new_hybrid():
+        with CudaTimer() as timer:
+            out = port.hybrid_calibrate_batch_mixed(loaded, *h_args)
+        return out, timer.ms
+    out, hyb_ms = drive(14, new_hybrid, all4)
+    truth = h_args[-1]
+    h_err = ((out.model_prices - truth).abs() / truth).mean(-1).cpu().numpy()
+
+    def ffn_only(s_):
+        p_ = s_.predict_params(truth, h_args[0]).to(f64)
+        m_ = cos_kernel.price_surfaces(p_, h_args[0], 0.03, h_args[2],
+                                       h_args[3], h_args[4])
+        return ((m_ - truth).abs() / truth).mean(-1).cpu().numpy() * 100
+    ffn_new, ffn_shipped = ffn_only(loaded), ffn_only(surrogate)
+    h_err = h_err * 100
+    print(f"[14] hybrid with the new surrogate, {n_h} held-out noiseless "
+          f"surfaces {card}: mean err {h_err.mean():.5f} %, max "
+          f"{h_err.max():.5f} %; surfaces beating FFN-only "
+          f"{int((h_err < ffn_new).sum())}/{n_h}; FFN-only mean: new "
+          f"{ffn_new.mean():.5f} %, shipped {ffn_shipped.mean():.5f} %; wall "
+          f"{hyb_ms:.2f} ms")
+    check(bool(np.all(h_err < ffn_new)),
+          "a surface misses its FFN-only error (new surrogate)")
+    check(h_err.mean() <= 0.03, "hybrid (new surrogate) above 0.03 %")
+
+    # One train step's cost: 50 steps at batch 256, events and host clock,
+    # then the same under torch.profiler for the device's busy share.
+    g_dev = torch.Generator(dev).manual_seed(5)
+    model = ffn_mod.init_ffn(torch.Generator().manual_seed(0), dev)
+    train_epoch, _ = tr.epoch_fns(model, torch.optim.Adam(
+        model.parameters(), lr=1e-3))
+    xb = torch.randn(50, 256, 11, generator=g_dev, device=dev)
+    yb = torch.randn(50, 256, 13, generator=g_dev, device=dev)
+    train_epoch(xb[:5], yb[:5], g_dev)              # warm-up
+    t0 = time.perf_counter()
+    with CudaTimer() as timer:
+        train_epoch(xb, yb, g_dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = timer.ms / 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with CudaTimer() as t_prof:
+            train_epoch(xb, yb, g_dev)
+    # Device entries that are kernels or copies: a user annotation such as
+    # "Optimizer.step#Adam.step" spans its kernels and the gaps between.
+    averages = prof.key_averages()
+    on_dev = [e for e in averages
+              if dev_us(e) > 0 and "CUDA" in str(e.device_type)
+              and not getattr(e, "is_user_annotation", False)
+              and "#" not in e.key]
+    busy = sum(dev_us(e) for e in on_dev) / 1e3
+    n_ops = sum(e.count for e in on_dev)
+    n_aten = sum(e.count for e in averages if e.key.startswith("aten::"))
+    print(f"[14] train step, batch 256, 50 steps {card}: {step_ms:.4f} ms a "
+          f"step (CUDA events; host clock {host_ms / 50:.4f} ms), "
+          f"{256 / step_ms * 1e3:.0f} samples/s; profiled: {n_ops / 50:.1f} "
+          f"device kernels and copies and {n_aten / 50:.1f} host ATen ops a "
+          f"step, busy {busy:.3f} ms = {100 * busy / timer.ms:.1f} % of the "
+          f"unprofiled wall ({timer.ms:.2f} ms; profiled {t_prof.ms:.2f} "
+          f"ms)")
+    for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
+        print(f"[14]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    check(busy > 0, "the profile shows no device time for the train steps")
+
+    # One dropout-free epoch of fit on the card and on the CPU, the same
+    # init and scalers: float32 both, TF32 off; the matmuls sum in other
+    # orders and 15 Adam steps carry that on.
+    ep = port.generate_dataset(torch.Generator(dev).manual_seed(4),
+                               GeneratorConfig(n_samples=4800), dtype=f32,
+                               device=dev)
+    fx, fy = tr.dataset_to_xy(ep)
+    base = ffn_mod.SurrogateFFN(dropout=(0.0,) * 4)
+    base.load_state_dict(ffn_mod.init_ffn(
+        torch.Generator().manual_seed(0)).state_dict())
+    init = tr.TrainedSurrogate(base, StandardScaler.fit(fx),
+                               StandardScaler.fit(fy))
+    one = tr.TrainConfig(max_epochs=1)
+    _, h_cpu = tr.fit(fx, fy, one, init=init, device="cpu")
+    _, h_card = tr.fit(fx, fy, one, init=init, device=dev)
+    rel = abs(h_card["val_loss"][0] / h_cpu["val_loss"][0] - 1.0)
+    print(f"[14] one epoch of fit, dropout 0, card vs CPU {card}: val loss "
+          f"{h_card['val_loss'][0]:.7f} vs {h_cpu['val_loss'][0]:.7f}, rel "
+          f"{rel:.3e} (tol 1e-3); train loss {h_card['train_loss'][0]:.7f} "
+          f"vs {h_cpu['train_loss'][0]:.7f}")
+    check(rel <= 1e-3, "fit on the card disagrees with the CPU")
 
     for name, n in path_launches.items():
         record.setdefault(name, {})["launches"] = n

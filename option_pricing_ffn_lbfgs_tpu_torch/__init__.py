@@ -22,6 +22,9 @@ Quick start::
     surrogate = load_default_model()
     out = hybrid_calibrate_batch_mixed(surrogate, spots, rate, strikes,
                                        maturities, is_call, market_prices)
+
+Training a surrogate (``fit``, ``pretrain_and_finetune``; the whole
+two-stage pipeline is ``tools/train_pipeline.py``) runs on ``cuda`` too.
 """
 from .models.double_heston import (
     DHParams, PARAM_NAMES, char_fn, payoff_coefficients, price_options,
@@ -43,12 +46,17 @@ from .data.synthetic import (
     SyntheticDataset, generate_dataset, load_dataset, save_dataset,
     to_calibration_results)
 from .surrogate.features import extract_features
-from .surrogate.ffn import SurrogateFFN
+from .surrogate.ffn import SurrogateFFN, init_ffn
 from .surrogate.hybrid import (
     HybridResult, ffn_only_predict, hybrid_calibrate,
     hybrid_calibrate_batch_mixed)
 from .surrogate.predict import load_default_model, make_predict_fn
-from .surrogate.train import TrainedSurrogate, load_surrogate, save_surrogate
+from .surrogate.train import (
+    FINETUNE, TrainConfig, TrainedSurrogate, dataset_to_xy, fit,
+    load_surrogate, pretrain_and_finetune, save_surrogate)
+from .utils.checkpoint import (
+    load_batch_calibration, load_surrogate_state, save_batch_calibration,
+    save_surrogate_state)
 
 __all__ = [
     "DHParams", "PARAM_NAMES", "char_fn", "payoff_coefficients",
@@ -63,8 +71,12 @@ __all__ = [
     "CalibrationResult", "write_benchmark_json",
     "SyntheticDataset", "generate_dataset", "load_dataset", "save_dataset",
     "to_calibration_results",
-    "extract_features", "SurrogateFFN",
+    "extract_features", "SurrogateFFN", "init_ffn",
     "HybridResult", "ffn_only_predict", "hybrid_calibrate",
     "hybrid_calibrate_batch_mixed", "load_default_model", "make_predict_fn",
     "TrainedSurrogate", "load_surrogate", "save_surrogate",
+    "FINETUNE", "TrainConfig", "dataset_to_xy", "fit",
+    "pretrain_and_finetune",
+    "load_batch_calibration", "load_surrogate_state",
+    "save_batch_calibration", "save_surrogate_state",
 ]

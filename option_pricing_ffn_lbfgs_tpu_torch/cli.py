@@ -1,19 +1,19 @@
 """Command-line entry points: demo / generate / calibrate / benchmark /
-compare, with the JAX package's flags plus ``--device`` (default
+train / compare, with the JAX package's flags plus ``--device`` (default
 ``cuda``)::
 
   python -m option_pricing_ffn_lbfgs_tpu_torch demo
   python -m option_pricing_ffn_lbfgs_tpu_torch generate  --n-samples 500 --out d.pkl
   python -m option_pricing_ffn_lbfgs_tpu_torch calibrate --data d.pkl --index 0
   python -m option_pricing_ffn_lbfgs_tpu_torch benchmark --n-surfaces 5 --out r.json
+  python -m option_pricing_ffn_lbfgs_tpu_torch train --pretrain a.npz --finetune b.pkl --out ffn.pkl
   python -m option_pricing_ffn_lbfgs_tpu_torch compare --n-eval 5 --out-dir results
 
 ``--f64`` (before the subcommand) computes in float64, as in the JAX
 package. ``--device cuda`` without a CUDA card is an error: nothing falls
 back to the CPU; ``--device cpu`` runs the kernels' plain versions.
-Training (the JAX package's ``train``) is not ported yet, so ``compare``
-without ``--surrogate`` uses the shipped surrogate
-(``results/models/ffn_surrogate.pkl``).
+``compare`` without ``--surrogate`` quick-trains one on its dataset, as
+the JAX package does.
 """
 from __future__ import annotations
 
@@ -153,12 +153,41 @@ def cmd_benchmark(args):
     return 0
 
 
+def cmd_train(args):
+    from .data.synthetic import generate_dataset, load_dataset
+    from .surrogate.train import (TrainConfig, dataset_to_xy, fit,
+                                  pretrain_and_finetune, save_surrogate)
+    from .utils.config import GeneratorConfig
+    dev = _device(args)
+    if args.pretrain:
+        pre = load_dataset(args.pretrain, device=dev)
+    else:
+        print(f"generating {args.n_pretrain} pretraining surfaces...")
+        pre = generate_dataset(torch.Generator(dev).manual_seed(1),
+                               GeneratorConfig(n_samples=args.n_pretrain),
+                               device=dev)
+    if args.finetune:
+        fine = load_dataset(args.finetune, device=dev)
+        surrogate, hist = pretrain_and_finetune(pre, fine,
+                                                verbose=args.verbose,
+                                                device=dev)
+    else:
+        fx, fy = dataset_to_xy(pre)
+        surrogate, hist = fit(fx, fy, TrainConfig(max_epochs=args.epochs),
+                              verbose=args.verbose, device=dev)
+        hist = {"pretrain": hist}
+    save_surrogate(args.out, surrogate)
+    last = {k: v["val_loss"][-1] for k, v in hist.items()}
+    print(f"saved surrogate to {args.out}; final val losses: {last}")
+    return 0
+
+
 def cmd_compare(args):
     """Three-method comparison producing the reference results artifacts."""
     from .compare import run_comparison
     from .data.synthetic import generate_dataset, load_dataset
-    from .surrogate.predict import load_default_model
-    from .surrogate.train import load_surrogate
+    from .surrogate.train import (TrainConfig, dataset_to_xy, fit,
+                                  load_surrogate)
     from .utils.config import GeneratorConfig
     dev = _device(args)
     if args.data:
@@ -167,8 +196,13 @@ def cmd_compare(args):
         ds = generate_dataset(torch.Generator(dev).manual_seed(args.seed),
                               GeneratorConfig(n_samples=max(args.n_eval, 300)),
                               dtype=torch.float64, device=dev)
-    surrogate = (load_surrogate(args.surrogate) if args.surrogate
-                 else load_default_model())
+    if args.surrogate:
+        surrogate = load_surrogate(args.surrogate)
+    else:
+        print("no --surrogate given; quick-training one on the dataset...")
+        fx, fy = dataset_to_xy(ds)
+        surrogate, _ = fit(fx, fy, TrainConfig(max_epochs=60, patience=20,
+                                               batch_size=64), device=dev)
     payload = run_comparison(ds, surrogate, n_eval=args.n_eval,
                              out_dir=args.out_dir, device=dev)
     print(json.dumps({
@@ -224,10 +258,20 @@ def build_parser():
                         help="FFN vs L-BFGS vs hybrid comparison")
     cp.add_argument("--data", help="dataset (.pkl/.npz); generated if absent")
     cp.add_argument("--surrogate",
-                    help="trained surrogate (.pkl); the shipped one if absent")
+                    help="trained surrogate (.pkl); quick-trained if absent")
     cp.add_argument("--n-eval", type=int, default=5)
     cp.add_argument("--seed", type=int, default=0)
     cp.add_argument("--out-dir", default="results")
+
+    t = sub.add_parser("train", parents=[dev],
+                       help="train the FFN surrogate")
+    t.add_argument("--pretrain", help="pretraining dataset (.pkl/.npz)")
+    t.add_argument("--finetune", help="fine-tuning dataset (.pkl/.npz)")
+    t.add_argument("--n-pretrain", type=int, default=5000,
+                   help="surfaces to generate if --pretrain absent")
+    t.add_argument("--epochs", type=int, default=200)
+    t.add_argument("--out", default="ffn_surrogate.pkl")
+    t.add_argument("--verbose", action="store_true")
     return p
 
 
@@ -235,7 +279,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     return {"demo": cmd_demo, "generate": cmd_generate,
             "calibrate": cmd_calibrate, "benchmark": cmd_benchmark,
-            "compare": cmd_compare}[args.cmd](args)
+            "train": cmd_train, "compare": cmd_compare}[args.cmd](args)
 
 
 if __name__ == "__main__":

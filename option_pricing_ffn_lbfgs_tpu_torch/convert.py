@@ -113,15 +113,16 @@ def load_pickle(path):
         return _PortUnpickler(f).load()
 
 
-def ffn_state_dict_from_flax(variables) -> "collections.OrderedDict":
+def ffn_state_dict_from_flax(variables, dtype=torch.float32
+                             ) -> "collections.OrderedDict":
     """Flax ``{"params", "batch_stats"}`` of ``SurrogateFFN`` -> the port's
-    ``SurrogateFFN`` state_dict. Dense ``kernel [in, out]`` becomes
-    ``weight [out, in]``; BatchNorm ``scale``/``bias`` become
+    ``SurrogateFFN`` state_dict at ``dtype``. Dense ``kernel [in, out]``
+    becomes ``weight [out, in]``; BatchNorm ``scale``/``bias`` become
     ``weight``/``bias`` and ``mean``/``var`` ``running_mean``/
     ``running_var``."""
     params, stats = variables["params"], variables["batch_stats"]
     n_hidden = len(stats)
-    t = lambda a: torch.as_tensor(np.array(a, np.float32))
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype)
     out = collections.OrderedDict()
     for i in range(n_hidden):
         dense, bn, bs = (params[f"Dense_{i}"], params[f"BatchNorm_{i}"],

@@ -5,18 +5,32 @@ The JAX package's ``surrogate/ffn.py`` (Flax) as an ``nn.Module``: Dense
 ReLU, then a linear 13-unit head. The outputs are the calibrator's
 unconstrained coordinates, so they feed the L-BFGS warm start directly.
 
-BatchNorm matches Flax's: epsilon 1e-5 (both libraries' default) and
-momentum 0.01 in torch's convention (Flax's 0.99). In ``eval()`` mode it
-uses its running statistics and dropout is off, which is how the JAX
-package runs inference (``train=False``). The Dense layers are plain
-``nn.Linear`` (cuBLAS on the card), as they were XLA matmuls outside any
-Pallas kernel in the JAX package; keep TF32 off
+Training follows Flax, not torch's defaults:
+  * ``init_ffn``: Dense kernels ``lecun_normal`` (a normal truncated at
+    two standard deviations, rescaled so its standard deviation is
+    sqrt(1/fan_in)), Dense biases zero, BatchNorm scale 1, offset 0,
+    running mean 0, running variance 1;
+  * ``BatchNorm1d`` in train mode normalises with the biased batch
+    variance E[x^2] - E[x]^2 (Flax's ``use_fast_variance``, clipped at 0)
+    and keeps that biased variance in its running average (torch's
+    ``nn.BatchNorm1d`` keeps the unbiased one); epsilon 1e-5 (both
+    libraries' default), momentum 0.01 in torch's convention (Flax's
+    0.99);
+  * dropout draws its keep-mask from the ``torch.Generator`` passed to
+    ``forward`` (never the global RNG) and scales kept units by 1/(1-p).
+
+In ``eval()`` mode BatchNorm uses its running statistics through torch's
+own ``BatchNorm1d`` and dropout is off, which is how the JAX package runs
+inference (``train=False``). The Dense layers are plain ``nn.Linear``
+(cuBLAS on the card), as they were XLA matmuls outside any Pallas kernel
+in the JAX package; keep TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default) for
 float32 parity.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -27,6 +41,45 @@ N_PARAMS = 13
 HIDDEN = (512, 256, 128, 64)
 DROPOUT = (0.3, 0.3, 0.2, 0.2)
 BN_EPSILON = 1e-5   # Flax's BatchNorm default, and torch's
+# Standard deviation of a standard normal truncated to [-2, 2]: Flax's
+# variance_scaling divides by it so the truncated draw keeps its variance.
+TRUNCATED_STD = 0.87962566103423978
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose train-mode pass is Flax's ``nn.BatchNorm``
+    (biased variance in the normalisation and in the running average);
+    eval mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(0)
+        var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum     # Flax's momentum
+            self.running_mean.copy_(keep * self.running_mean
+                                    + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + (1.0 - keep) * var)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` in train mode: keep each unit with
+    probability 1 - rate (a uniform draw from ``generator`` below it) and
+    scale it by 1/(1 - rate); rate 0 is the identity."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class SurrogateFFN(nn.Module):
@@ -40,16 +93,39 @@ class SurrogateFFN(nn.Module):
         widths = (n_features, *hidden)
         self.dense = nn.ModuleList(nn.Linear(i, o)
                                    for i, o in zip(widths[:-1], widths[1:]))
-        self.norm = nn.ModuleList(nn.BatchNorm1d(w, eps=BN_EPSILON,
-                                                 momentum=0.01)
+        self.norm = nn.ModuleList(BatchNorm1d(w, eps=BN_EPSILON,
+                                              momentum=0.01)
                                   for w in hidden)
-        self.drop = nn.ModuleList(nn.Dropout(r) for r in dropout)
+        self.dropout = tuple(float(r) for r in dropout)
         self.head = nn.Linear(widths[-1], N_PARAMS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for dense, norm, drop in zip(self.dense, self.norm, self.drop):
-            x = torch.relu(drop(norm(dense(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` feeds the dropout masks in train mode."""
+        for dense, norm, rate in zip(self.dense, self.norm, self.dropout):
+            x = norm(dense(x))
+            if self.training:
+                x = dropout(x, rate, generator)
+            x = torch.relu(x)
         return self.head(x)
+
+
+def init_ffn(generator: torch.Generator, device=None) -> SurrogateFFN:
+    """A ``SurrogateFFN`` with Flax's default initialisation, drawn from
+    ``generator`` on its own device, then moved to ``device`` (default: the
+    generator's device). The global RNG is not touched."""
+    with torch.device("meta"):
+        model = SurrogateFFN()
+    model = model.to_empty(device=generator.device)
+    with torch.no_grad():
+        for lin in (*model.dense, model.head):
+            std = math.sqrt(1.0 / lin.in_features) / TRUNCATED_STD
+            nn.init.trunc_normal_(lin.weight, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
+            nn.init.zeros_(lin.bias)
+        for norm in model.norm:
+            norm.reset_parameters()
+    return model.to(device) if device is not None else model
 
 
 def count_params(model: nn.Module) -> int:

@@ -1,2 +1,3 @@
-"""Measurement tools run on the card; nothing on a calibration path
-imports them."""
+"""Scripts run on the card: the measurement tool (``ab_parent``) and the
+surrogate's training pipeline (``train_pipeline``); nothing on a
+calibration path imports them."""

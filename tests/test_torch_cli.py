@@ -8,6 +8,9 @@ All on the CPU (``--device cpu``: the kernels' plain versions), small:
   * ``calibrate`` runs one generated surface at float32 and at ``--f64``;
   * ``run_comparison`` on one surface at N = 64 writes the three artefacts,
     whose JSON keys are those of the JAX package's ``results/*.json``;
+  * ``train`` writes a surrogate both packages load; ``compare`` without
+    ``--surrogate`` quick-trains one on its dataset, as the JAX CLI does
+    (the comparison itself is replaced there: it is the test above);
   * ``--device cuda`` without a card is an error, not a CPU fallback.
 """
 import json
@@ -21,9 +24,13 @@ import torch
 from option_pricing_ffn_lbfgs_tpu import cli as jcli
 from option_pricing_ffn_lbfgs_tpu.data.synthetic import (
     load_dataset as jload_dataset)
+from option_pricing_ffn_lbfgs_tpu.surrogate.train import (
+    load_surrogate as jload_surrogate)
 import option_pricing_ffn_lbfgs_tpu_torch as port
 from option_pricing_ffn_lbfgs_tpu_torch import cli as tcli
+from option_pricing_ffn_lbfgs_tpu_torch import compare as tcompare
 from option_pricing_ffn_lbfgs_tpu_torch.compare import run_comparison
+from option_pricing_ffn_lbfgs_tpu_torch.surrogate import train as ttrain
 
 torch.set_num_threads(1)
 RESULTS = Path(__file__).resolve().parent.parent / "results"
@@ -81,6 +88,60 @@ def test_cuda_default_without_card_fails(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         tcli.main(["demo"])
+
+
+@pytest.mark.parametrize("argv", [["train"], ["train", "--device", "cuda"],
+                                  ["compare"]])
+def test_training_commands_need_a_card(monkeypatch, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tcli.main(argv)
+
+
+def test_train_writes_a_loadable_surrogate(tmp_path, capsys):
+    out = str(tmp_path / "x.pkl")
+    assert tcli.main(["train", "--n-pretrain", "300", "--epochs", "3",
+                      "--out", out, *CPU]) == 0
+    assert "saved surrogate" in capsys.readouterr().out
+    t = port.load_surrogate(out)
+    j = jload_surrogate(out)
+    ds = port.generate_dataset(torch.Generator().manual_seed(3),
+                               port.GeneratorConfig(n_samples=4), n_terms=64,
+                               device="cpu")
+    x = t.predict_x(ds.market_prices, ds.spots)
+    assert x.shape == (4, 13) and bool(torch.isfinite(x).all())
+    np.testing.assert_allclose(
+        np.asarray(j.predict_x(ds.market_prices.numpy(), ds.spots.numpy())),
+        x.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_compare_quick_trains(tmp_path, monkeypatch, capsys):
+    data = str(tmp_path / "d.npz")
+    assert tcli.main(["generate", "--n-samples", "40", "--out", data,
+                      *CPU]) == 0
+    fits, seen = [], {}
+    real_fit = ttrain.fit
+
+    def fit(*args, **kwargs):
+        fits.append((args[2], kwargs))
+        return real_fit(*args, **kwargs)
+
+    def comparison(ds, surrogate, n_eval, out_dir, device):
+        seen.update(surrogate=surrogate, n=ds.n_samples, device=device)
+        stats = {"mean_error": 0.0, "mean_time": 0.0}
+        return {"ffn": stats, "lbfgs": {"statistics": stats},
+                "hybrid": {"statistics": stats}}
+    monkeypatch.setattr(ttrain, "fit", fit)
+    monkeypatch.setattr(tcompare, "run_comparison", comparison)
+    assert tcli.main(["compare", "--data", data, "--n-eval", "1",
+                      "--out-dir", str(tmp_path), *CPU]) == 0
+    assert "quick-training" in capsys.readouterr().out
+    (config, kwargs), = fits
+    assert config == port.TrainConfig(max_epochs=60, patience=20,
+                                      batch_size=64)
+    assert kwargs["device"] == torch.device("cpu")
+    assert isinstance(seen["surrogate"], port.TrainedSurrogate)
+    assert seen["n"] == 40 and seen["device"] == torch.device("cpu")
 
 
 def _keys(d):

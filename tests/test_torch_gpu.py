@@ -443,3 +443,70 @@ def test_guard_band_and_identical_bits(cuda, mode, dt, n_terms):
     assert bool((grad[lanes:] == -12345.0).all())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(price[:lanes], a[0]) and torch.equal(grad[:lanes], a[1])
+
+
+def _no_dropout_copy(model, device):
+    """``model``'s weights in a dropout-free ``SurrogateFFN`` on
+    ``device``."""
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate.ffn import SurrogateFFN
+    out = SurrogateFFN(dropout=(0.0,) * 4)
+    out.load_state_dict(model.state_dict())
+    return out.to(device)
+
+
+def test_init_ffn_and_batchnorm_on_card(cuda, monkeypatch):
+    """init_ffn from a CPU generator gives the same weights on the card as
+    on the CPU; from a generator on the card, Flax's lecun_normal
+    statistics (std within 5 % of sqrt(1/fan_in), |w| <= 2 sigma, zero
+    biases). One train-mode forward (Flax's BatchNorm) and its running
+    statistics on the card against the CPU, float32 with TF32 off: 1e-5
+    of each tensor's largest entry (the matmuls sum in other orders)."""
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate import ffn
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = ffn.init_ffn(torch.Generator().manual_seed(0))
+    moved = ffn.init_ffn(torch.Generator().manual_seed(0), device=cuda)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(
+        cpu.state_dict().values(), moved.state_dict().values()))
+    on_card = ffn.init_ffn(torch.Generator(cuda).manual_seed(0))
+    w = on_card.dense[1].weight.detach()
+    target = (1.0 / 512) ** 0.5
+    assert w.device.type == "cuda"
+    assert abs(float(w.std()) / target - 1.0) < 0.05
+    assert float(w.abs().max()) <= 2.0 * target / ffn.TRUNCATED_STD * (1 + 1e-6)
+    assert not bool(on_card.dense[1].bias.any())
+    x = torch.randn(256, 11, generator=torch.Generator().manual_seed(1))
+    m_cpu = _no_dropout_copy(cpu, "cpu").train()
+    m_gpu = _no_dropout_copy(cpu, cuda).train()
+    out_c, out_g = m_cpu(x), m_gpu(x.to(cuda))
+    close = lambda a, b: bool((a.detach().cpu() - b.detach()).abs().max()
+                              <= 1e-5 * b.detach().abs().max())
+    assert close(out_g, out_c)
+    for a, b in zip(m_gpu.state_dict().values(), m_cpu.state_dict().values()):
+        if b.is_floating_point():
+            assert close(a, b)
+
+
+def test_fit_one_epoch_card_vs_cpu(cuda, monkeypatch):
+    """One epoch of fit with dropout 0 from the same init and scalers on
+    the card and on the CPU: the val losses agree to 1e-3 relative
+    (float32; 16 Adam steps amplify the matmuls' rounding), and the card's
+    run returns its weights on the CPU."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate import ffn, train
+    from option_pricing_ffn_lbfgs_tpu_torch.surrogate.scalers import (
+        StandardScaler)
+    ds = port.generate_dataset(torch.Generator().manual_seed(2),
+                               port.GeneratorConfig(n_samples=4800),
+                               dtype=F32, n_terms=64, device="cpu")
+    fx, fy = train.dataset_to_xy(ds)
+    model = _no_dropout_copy(ffn.init_ffn(torch.Generator().manual_seed(0)),
+                             "cpu")
+    init = train.TrainedSurrogate(model, StandardScaler.fit(fx),
+                                  StandardScaler.fit(fy))
+    cfg = train.TrainConfig(max_epochs=1)
+    s_c, h_c = train.fit(fx, fy, cfg, init=init, device="cpu")
+    s_g, h_g = train.fit(fx, fy, cfg, init=init, device=cuda)
+    assert len(h_g["val_loss"]) == 1
+    assert abs(h_g["val_loss"][0] / h_c["val_loss"][0] - 1.0) <= 1e-3
+    assert abs(h_g["train_loss"][0] / h_c["train_loss"][0] - 1.0) <= 1e-3
+    assert next(s_g.model.parameters()).device.type == "cpu"

@@ -1,9 +1,12 @@
 """The PyTorch port never imports JAX.
 
-A fresh interpreter imports every module of the port, loads the shipped
+A fresh interpreter imports every module of the port (the training
+modules included: ``surrogate/train.py``, ``utils/checkpoint.py``,
+``utils/logging_util.py``, ``tools/train_pipeline.py``), loads the shipped
 surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
-the JAX package through the port, and must find neither ``jax`` nor the
-JAX package in ``sys.modules``.
+the JAX package through the port, trains a surrogate for one epoch on the
+CPU and round-trips it through the checkpoint functions, and must find
+neither ``jax`` nor the JAX package in ``sys.modules``.
 """
 import subprocess
 import sys
@@ -20,13 +23,24 @@ REPO = Path(__file__).resolve().parent.parent
 PROBE = """
 import pkgutil
 import sys
+import tempfile
+import numpy as np
 import option_pricing_ffn_lbfgs_tpu_torch as port
 for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     if not mod.name.endswith("__main__"):
         __import__(mod.name)
+for name in ("surrogate.train", "utils.checkpoint", "utils.logging_util",
+             "tools.train_pipeline"):
+    assert port.__name__ + "." + name in sys.modules, name
 model = port.load_default_model()
 ds = port.load_dataset(sys.argv[1], device="cpu")
 assert ds.n_samples == 2 and model.model.head.out_features == 13
+rng = np.random.default_rng(0)
+s, hist = port.fit(rng.normal(size=(32, 11)), rng.normal(size=(32, 13)),
+                   port.TrainConfig(max_epochs=1, batch_size=8), device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    port.save_surrogate_state(d, s)
+    assert port.load_surrogate_state(d).model.head.out_features == 13
 assert "torch" in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
