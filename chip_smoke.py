@@ -7,7 +7,8 @@ Phases:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
   2. build: compile csrc/ into the package's _build/ (timed);
   3. K1: float64 golden prices, K1<double>/K1<float> vs the plain PyTorch
-     pricer on the card, B in {1, 17, 4096} with mixed call/put, n_opt 9;
+     pricer on the card, B in {1, 17, 4096} with mixed call/put, n_opt 9,
+     and at L = 12 / q = 0.02 (together, q alone, L alone);
      then at edge shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17; mixed calls
      and puts, all-distinct maturities, rows whose range widening binds)
      and at 64 distinct maturities, N = 128 (over 48 KB of shared memory),
@@ -17,10 +18,16 @@ Phases:
      shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17; mixed calls and puts,
      all-distinct maturities, rows whose range widening binds), a guard
      band one lane past the outputs, and two launches' bits;
-  5. K3: residual Jacobian vs jacfwd of the plain residuals;
-  6. the slice, bench twin: 6 problem sets x 5 surfaces (bench.py's recipe),
-     calibrate_batch_mixed with 3 starts, chained and timed with CUDA
-     events; launch counts of every kernel on that run;
+  5. K3: residual Jacobian vs jacfwd of the plain residuals; K2 and K3 also
+     at L = 12 / q = 0.02 (together, q alone, L alone);
+  6. the slice, bench twin: tools/bench.py's 6 problem sets x 5 surfaces
+     (bench.py's recipe, truths from the in-process host pricer), each
+     calibrated once by calibrate_batch_mixed with 3 starts (the launch
+     counts and the accuracy); then tools/bench.py's main() in a fresh
+     process (the benchmark itself: chained, timed with CUDA events, median
+     of 3 trials), whose one JSON line is parsed and whose accuracy must
+     repeat this one (its build_warm_s comes from a third process whose
+     _build/ is warm);
   7. the slice, compacted: 512 surfaces x 3 starts, so the polish waves run
      (accuracy pooled over four such sets); then torch.profiler over one
      such call (device busy, K2 + K3 share);
@@ -34,11 +41,11 @@ Phases:
  10. the shipped surrogate: predict_x on 512 surfaces, card against CPU;
  11. K2 at the hybrid's N = 128 (1024 lanes) and K2<double> (15 and 1536
      lanes, and the edge shapes) against autograd of the plain loss, then
-     timed;
+     timed; K2<double> at L = 12 / q = 0.02;
  12. the hybrid: hybrid_calibrate_batch_mixed on 512 noiseless surfaces
      (every surface must beat its FFN-only error, mean <= 0.03 %);
  13. the entry points through cli.main: demo, generate, calibrate (float32
-     and --f64), benchmark, compare --n-eval 10 (without --surrogate, so it
+     and --f64), benchmark, compare --n-eval 5 (without --surrogate, so it
      quick-trains one), train --n-pretrain 5000 --epochs 5;
  14. the training path: tools/train_pipeline.py at the published size
      (100,000 pretraining surfaces, 1,000 fine-tune calibrations; at least
@@ -48,11 +55,17 @@ Phases:
      (every surface beats its FFN-only error, mean <= 0.03 %); stage walls,
      epochs, ms per train step and samples/s, the device busy share over
      50 train steps (torch.profiler); one dropout-free epoch of fit on the
-     card against the CPU from the same init (val loss within 1e-3).
+     card against the CPU from the same init (val loss within 1e-3);
+ 15. the benchmark's other paths, on the bench sets: tools/bench.py's
+     run("float64") (K2<double>; one timing trial), tools/error_ablation.py's
+     five rows beside the JAX package's record, calibrate_batch_mixed with
+     the winner-only LM polish and with the Wolfe polish (POLISH_LBFGS;
+     trips and walls on two of the sets), the host pricer, the Greeks and
+     the implied vols on the card against the CPU.
 
-Each main-path run (phases 6, 9, 12, 13, 14) is driven with the launch counts
-set to 0 just before it and read just after; every kernel it should run
-must have launched. The per-kernel record's "launches" is the sum over
+Every phase prints its wall. Each main-path run (phases 6, 9, 12, 13, 14,
+15) is driven with the launch counts set to 0 just before it and read just
+after; every kernel it should run must have launched. The per-kernel record's "launches" is the sum over
 those runs. Any failure exits non-zero. The last line is the JSON device
 record; the line before it is the per-kernel JSON record.
 """
@@ -98,15 +111,24 @@ def main():
         PARAM_NAMES, DHParams)
     from option_pricing_ffn_lbfgs_tpu_torch.ops import (
         cos_kernel, kernel_build, loss_kernel, opcount)
+    from option_pricing_ffn_lbfgs_tpu_torch.ops.black_scholes import (
+        implied_vol_surface)
     from option_pricing_ffn_lbfgs_tpu_torch.data.synthetic import (
         RANGE_HI, RANGE_LO)
     from option_pricing_ffn_lbfgs_tpu_torch.utils.config import (
         CalibrationConfig, GeneratorConfig, PricerConfig)
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import bench as tbench
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import error_ablation
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.hostpricer import (
+        price_truth_subprocess)
     from option_pricing_ffn_lbfgs_tpu_torch.utils.timing import (
         CudaTimer, cuda_time_ms)
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
+    # truncation width and dividend yield away from 10 / 0: both, q alone,
+    # L alone
+    LQ = ((12.0, 0.02), (10.0, 0.02), (12.0, 0.0))
     record = {}   # kernel name -> JSON fields
     path_launches = {}   # kernel name -> launches summed over main paths
     path_launches_last = {}   # the counts of the most recent main path
@@ -130,7 +152,20 @@ def main():
         path_launches_last.update(got)
         return out
 
+    walls = {}   # phase -> wall seconds
+    clock = [time.perf_counter(), None]
+
+    def lap(phase):
+        """Close the running phase's wall clock and open ``phase``'s."""
+        now = time.perf_counter()
+        if clock[1] is not None:
+            walls[clock[1]] = round(now - clock[0], 1)
+            print(f"[{clock[1]}] phase wall {now - clock[0]:.1f} s",
+                  flush=True)
+        clock[:] = [now, phase]
+
     # ---------------------------------------------------------- 1 device --
+    lap(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -145,6 +180,7 @@ def main():
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # ----------------------------------------------------------- 2 build --
+    lap(2)
     build_s = kernel_build.build("cos_price", "cos_vg")
     print(f"[2] build: {build_s:.1f} s (nvcc {' '.join(kernel_build.NVCC_FLAGS)})")
     k1_spills = []
@@ -167,6 +203,7 @@ def main():
           "K1 spills registers (ptxas reports spill stores)")
 
     # -------------------------------------------------------------- 3 K1 --
+    lap(3)
     demo = dict(v1_0=0.04, kappa1=2.0, theta1=0.04, sigma1=0.3, rho1=-0.5,
                 v2_0=0.04, kappa2=1.5, theta2=0.04, sigma2=0.2, rho2=-0.3,
                 lambda_j=0.5, mu_j=-0.05, sigma_j=0.10)
@@ -222,6 +259,50 @@ def main():
             check(out.shape == (b, 3 * n_strikes)
                   and bool(torch.isfinite(out).all()), "K1 output malformed")
             check(rel <= rtol, "K1 disagrees with its plain version")
+
+    # Truncation width and dividend yield away from 10 / 0 (together, q
+    # alone, L alone); "moves" is how far the setting moves the prices from
+    # the default's. K1<double> is held to its plain version at 1e-11.
+    # K1<float> is held to the plain version at float64 on the same inputs,
+    # at the float32 bar 8e-5: at L = 12 the range is wider and float32
+    # keeps fewer digits of the series, so the kernel and the plain float32
+    # version, each within the bar of float64, can round to opposite sides
+    # (8.07e-5 apart on these surfaces); that gap is printed.
+    params, spots, strikes, mats, call = surfaces(17, 5, 23)
+    ic = torch.tensor(call, device=dev)
+    k1_args = lambda dt: [torch.tensor(a, dtype=dt, device=dev)
+                          for a in (params, spots, strikes, mats)]
+    plain64 = lambda **kw: cos_kernel.price_surfaces_plain(
+        *k1_args(f64)[:2], 0.03, *k1_args(f64)[2:], ic, n_terms=64, **kw)
+    base = plain64()
+    for L, q in LQ:
+        ref64 = plain64(L=L, q=q)
+        moved = float(((ref64 - base).abs() / base.abs()).max())
+        for dt, rtol in ((f64, 1e-11), (f32, 8e-5)):
+            args = k1_args(dt)
+            out = cos_kernel.price_surfaces(args[0], args[1], 0.03, *args[2:],
+                                            ic, n_terms=64, L=L, q=q)
+            ref = cos_kernel.price_surfaces_plain(args[0], args[1], 0.03,
+                                                  *args[2:], ic, n_terms=64,
+                                                  L=L, q=q)
+            torch.cuda.synchronize()
+            rel_plain = float(((out - ref).abs() / ref.abs()).max())
+            rel64 = float(((out.to(f64) - ref64).abs() / ref64).max())
+            k1_err[dt] = max(k1_err[dt], float((out - ref).abs().max()))
+            if dt == f64:
+                print(f"[3] K1<double> L={L} q={q} B=17 n_opt=15 N=64: max "
+                      f"rel {rel_plain:.3e} (rtol 1e-11); moves the prices "
+                      f"{moved:.3e}")
+                ok = rel_plain <= rtol
+            else:
+                own = float(((ref.to(f64) - ref64).abs() / ref64).max())
+                print(f"[3] K1<float> L={L} q={q} B=17 n_opt=15 N=64: max rel "
+                      f"to float64 {rel64:.3e} (rtol 8e-5; the plain float32 "
+                      f"version's {own:.3e}), to the plain float32 version "
+                      f"{rel_plain:.3e}")
+                ok = rel64 <= rtol
+            check(bool(torch.isfinite(out).all()) and ok,
+                  f"K1 disagrees with its plain version at L={L} q={q}")
 
     lo_hi = np.array([(0.025, 0.080), (1.5, 4.5), (0.025, 0.065), (0.20, 0.50),
                       (-0.85, -0.40), (0.020, 0.070), (0.30, 1.20),
@@ -333,6 +414,7 @@ def main():
     k1_guard_and_bits(wide, 128, "64 distinct maturities")
 
     # ------------------------------------------------------- 4/5 K2, K3 --
+    lap(4)
     cfg64 = CalibrationConfig(pricer=PricerConfig(n_terms=64))
     ranges = {
         "v1_0": (0.025, 0.080), "kappa1": (1.5, 4.5), "theta1": (0.025, 0.065),
@@ -391,9 +473,8 @@ def main():
         grad, = torch.autograd.grad(loss.sum(), xr)
         return loss.detach(), torch.where(torch.isfinite(grad), grad, 0.0)
 
-    def plain_jac(spots, strikes, mats, call, mkt, x):
-        res_fn = make_residual_fn(spots, 0.03, strikes, mats, call, mkt,
-                                  cfg64)
+    def plain_jac(spots, strikes, mats, call, mkt, x, cfg=cfg64):
+        res_fn = make_residual_fn(spots, 0.03, strikes, mats, call, mkt, cfg)
         zero = torch.zeros(13, dtype=f32, device=dev)
         return torch.func.jacfwd(lambda dl: res_fn(x + dl))(zero)
 
@@ -422,6 +503,29 @@ def main():
               f"{jerr:.3e} (atol 5e-3)")
         check(J_k.shape == (n_lanes, 17, 13) and jerr <= 5e-3,
               "K3 disagrees with jacfwd")
+    prob = lanes_problem(15, 13)
+    for L, q in LQ:
+        cfg = CalibrationConfig(pricer=PricerConfig(n_terms=64, trunc_L=L,
+                                                    dividend_yield=q))
+        f_k, g_k = loss_kernel.make_batch_value_and_grad(
+            *prob[:5], 0.03, cfg)(prob[5])
+        f_p, g_p = plain_vg(*prob, cfg=cfg)
+        J_k = loss_kernel.make_batch_residual_jacobian(
+            *prob[:5], 0.03, cfg)(prob[5])
+        J_p = plain_jac(*prob, cfg=cfg)
+        torch.cuda.synchronize()
+        frel = float(((f_k - f_p).abs() / f_p.abs()).max())
+        scale = g_p.abs().amax(-1, keepdim=True).clamp(min=1e-6)
+        gerr = float(((g_k - g_p) / scale).abs().max())
+        jerr = float((J_k - J_p).abs().max()) / float(
+            J_p.abs().max().clamp(min=1e-6))
+        k2_err = max(k2_err, float((g_k - g_p).abs().max()))
+        k3_err = max(k3_err, float((J_k - J_p).abs().max()))
+        print(f"[4] K2 / [5] K3 L={L} q={q}, 15 lanes, N=64: loss max rel "
+              f"{frel:.3e} (rtol 2e-4), grad/rowmax {gerr:.3e} (atol 5e-3), "
+              f"K3 J/max {jerr:.3e} (atol 5e-3)")
+        check(frel <= 2e-4 and gerr <= 5e-3 and jerr <= 5e-3,
+              f"K2/K3 disagree with the plain versions at L={L} q={q}")
     prob = lanes_problem(15, 3)
     x_bad = prob[5].clone()
     x_bad[0] = 40.0
@@ -570,6 +674,7 @@ def main():
     record["cos_vg_jac"] = {"max_abs_err": k3_err}
 
     # ------------------------------------------------- 6 slice, bench twin --
+    lap(6)
     slice_cfg = CalibrationConfig(search_impl="pallas", polish_impl="pallas",
                                   polish_fused_min_lanes=1)
     polish = dataclasses.replace(calibrator.POLISH_LM, residual_impl="native")
@@ -611,27 +716,44 @@ def main():
               "slice output malformed")
         return np.abs((model - prices) / prices).mean(axis=-1) * 100.0
 
-    sets = [problem_set(5, 2026 + i)[:2] for i in range(6)]
-    calibrate(sets[0][0], 0)           # warm-up: first launches, allocator
-    torch.cuda.synchronize()
-
-    def bench_twin():
-        t0 = time.perf_counter()
-        with CudaTimer() as timer:
-            outs = [calibrate(args, i) for i, (args, _) in enumerate(sets)]
-        return outs, timer.ms, time.perf_counter() - t0
-    outs, twin_ms, host_s = drive(
-        6, bench_twin,
-        ["cos_price_f32", "cos_price_f64", "cos_vg_loss", "cos_vg_jac"])
-    errs = np.concatenate([errors_pct(o, p) for o, (_, p) in zip(outs, sets)])
-    per_surface_ms = twin_ms / 30
-    print(f"[6] bench twin 6 x 5 surfaces: mean err {errs.mean():.5f} %, "
-          f"max {errs.max():.5f} %; per surface {per_surface_ms:.2f} ms "
-          f"(CUDA events), host {host_s / 30 * 1e3:.2f} ms")
+    all4 = ["cos_price_f32", "cos_price_f64", "cos_vg_loss", "cos_vg_jac"]
+    sets6 = tbench.build_problems(tbench.N_PROBLEM_SETS)
+    outs = drive(6, lambda: [tbench.calibrate(a, "mixed") for a, _ in sets6],
+                 all4)
+    errs = np.concatenate([tbench.errors_pct(o, truth)
+                           for o, (_, truth) in zip(outs, sets6)])
+    print(f"[6] bench twin 6 x 5 surfaces (tools/bench.py's sets and "
+          f"calibrate, mixed): mean err {errs.mean():.5f} %, max "
+          f"{errs.max():.5f} %")
     print(f"[6] per-surface error %: {np.round(errs, 5).tolist()}")
+    check(errs.shape == (30,) and np.all(np.isfinite(errs)),
+          "bench twin output malformed")
     check(errs.mean() <= 0.03, "bench twin mean error above 0.03 %")
+    # The module's own JSON line, from main() in a fresh process (which
+    # measures build_warm_s in a third one).
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "option_pricing_ffn_lbfgs_tpu_torch.tools.bench"],
+        capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"tools/bench.py main() failed: {proc.stderr[-2000:]}")
+    bench_line = json.loads(lines[0])
+    print(f"[6] tools/bench.py in a fresh process "
+          f"({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    keys = {"metric", "value", "unit", "vs_baseline", "mean_error_pct",
+            "baseline_error_pct", "dtype", "batch", "n_problem_sets",
+            "timing_protocol", "build_s", "build_warm_s", "device"}
+    check(set(bench_line) == keys, f"bench JSON keys {sorted(bench_line)}")
+    check(bench_line["device"] == torch.cuda.get_device_name(0)
+          and bench_line["dtype"] == "mixed"
+          and abs(bench_line["mean_error_pct"] - errs.mean()) <= 1e-5,
+          "bench JSON line is off (its accuracy pass repeats the one above)")
 
     # -------------------------------------------------- 7 slice, compacted --
+    lap(7)
     # Checked: four sets of 512 Feller-capped surfaces (recoverable truths),
     # 3 starts each, pooled. The first set alone was the criterion until its
     # mean crossed 0.03 % when K2/K3 changed rounding; it is still printed
@@ -722,6 +844,7 @@ def main():
           f"{calibrator.WAVE_LANES}, wall {timer.ms / 1e3:.2f} s")
 
     # ------------------------------------------ 8 kernel vs plain timing --
+    lap(8)
     def kernel_vs_plain(label, name, kern, plain, work, dt, keep):
         """plain, kernel, kernel, plain: compare within one call; the bound
         is the least time for ``work`` (ops/opcount.py). ``keep`` records
@@ -792,6 +915,7 @@ def main():
                             keep=name in keep)
 
     # ------------------------------------------------------- 9 generator --
+    lap(9)
     gcfg = GeneratorConfig(n_samples=5000)
     rate = gcfg.surface.rate
     datasets = {}
@@ -848,6 +972,7 @@ def main():
         keep=False)
 
     # ------------------------------------------------------- 10 surrogate --
+    lap(10)
     surrogate = port.load_default_model()
     ds = datasets["f64"]
     mkt512, spots512 = ds.market_prices[:512], ds.spots[:512]
@@ -862,6 +987,7 @@ def main():
           "surrogate on the card disagrees with the CPU")
 
     # ----------------------------------------------- 11 K2 at new shapes --
+    lap(11)
     cfg128 = CalibrationConfig()
     k2d_err = 0.0
     record["cos_vg_loss_f64"] = {}
@@ -897,11 +1023,29 @@ def main():
                 p_, s_, 0.03, k_, m_, c_, mk_, 128),
             opcount.cos_vg_work(p_, s_, k_, m_, c_, mk_, 128, "loss"), dt,
             keep=(dt == f64 and n_lanes == 15))
+    prob = [t.to(f64) if t.dtype != torch.bool else t
+            for t in lanes_problem(15, 61)]
+    for L, q in LQ:
+        cfg = CalibrationConfig(pricer=PricerConfig(trunc_L=L,
+                                                    dividend_yield=q))
+        f_k, g_k = loss_kernel.make_batch_value_and_grad(
+            *prob[:5], 0.03, cfg)(prob[5])
+        f_p, g_p = plain_vg(*prob, cfg=cfg)
+        torch.cuda.synchronize()
+        frel = float(((f_k - f_p).abs() / f_p.abs()).max())
+        scale = g_p.abs().amax(-1, keepdim=True).clamp(min=1e-6)
+        gerr = float(((g_k - g_p) / scale).abs().max())
+        k2d_err = max(k2d_err, float((g_k - g_p).abs().max()))
+        print(f"[11] K2<double> L={L} q={q}, 15 lanes, N=128: loss max rel "
+              f"{frel:.3e} (rtol 1e-11), grad/rowmax {gerr:.3e} (atol 1e-9)")
+        check(f_k.dtype == f64 and frel <= 1e-11 and gerr <= 1e-9,
+              f"K2<double> disagrees with autograd at L={L} q={q}")
     record["cos_vg_loss_f64"]["max_abs_err"] = k2d_err
     edge_checks("[11] K2<double>", 128, f64, 1e-11, 1e-9, False)
     guard_and_bits(11, "loss", edge_problem(15, 15, 5, f64)[0], 128)
 
     # ---------------------------------------------------------- 12 hybrid --
+    lap(12)
     n_h = 512
     h_args = (ds.spots[:n_h], 0.03, ds.strikes[:n_h], ds.maturities[:n_h],
               torch.ones((n_h, 15), dtype=torch.bool, device=dev),
@@ -956,6 +1100,7 @@ def main():
           f"{path_launches_last['cos_vg_jac']}")
 
     # -------------------------------------------------- 13 entry points --
+    lap(13)
     def cli_run(argv):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -963,7 +1108,6 @@ def main():
         print(f"[13] cli {' '.join(argv)}: exit {rc}")
         return rc, buf.getvalue()
 
-    all4 = ["cos_price_f32", "cos_price_f64", "cos_vg_loss", "cos_vg_jac"]
     with tempfile.TemporaryDirectory() as tmp:
         rc, text = drive(13, lambda: cli_run(["demo"]), ["cos_price_f32"])
         parity = float(re.search(r"parity residual: (\S+)", text).group(1))
@@ -996,10 +1140,10 @@ def main():
               f"{bench['statistics']['mean_time']:.4f} s/surface")
         check(rc == 0 and len(bench["pricing_errors"]) == 5,
               "benchmark failed")
-        rc, text = drive(13, lambda: cli_run(["compare", "--n-eval", "10",
+        rc, text = drive(13, lambda: cli_run(["compare", "--n-eval", "5",
                                               "--out-dir", tmp]), all4)
         summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
-        print(f"[13] compare --n-eval 10: {json.dumps(summary)}")
+        print(f"[13] compare --n-eval 5: {json.dumps(summary)}")
         names = ("lbfgs_actual_results.json", "hybrid_actual_results.json",
                  "COMPARISON_TABLE.txt")
         check(rc == 0 and all(os.path.exists(os.path.join(tmp, n))
@@ -1021,6 +1165,7 @@ def main():
               and bool(torch.isfinite(x).all()), "train failed")
 
     # ------------------------------------------------------- 14 training --
+    lap(14)
     from option_pricing_ffn_lbfgs_tpu_torch.surrogate import ffn as ffn_mod
     from option_pricing_ffn_lbfgs_tpu_torch.surrogate import train as tr
     from option_pricing_ffn_lbfgs_tpu_torch.surrogate.scalers import (
@@ -1157,6 +1302,119 @@ def main():
           f"{rel:.3e} (tol 1e-3); train loss {h_card['train_loss'][0]:.7f} "
           f"vs {h_cpu['train_loss'][0]:.7f}")
     check(rel <= 1e-3, "fit on the card disagrees with the CPU")
+
+    # ------------------------------------------ 15 the benchmark's paths --
+    lap(15)
+    # bench.py's float64 fallback: calibrate_batch at float64 (K2<double>,
+    # K1<double> reprices the winner); one timing trial of the three.
+    r64 = drive(15, lambda: tbench.run("float64", n_trials=1),
+                ["cos_vg_loss_f64", "cos_price_f64"])
+    e64 = np.array(r64["per_surface_error_pct"])
+    print(f"[15] bench float64 {card}: mean err {e64.mean():.5f} %, max "
+          f"{e64.max():.5f} %; per surface {r64['per_surface_s'] * 1e3:.2f} "
+          f"ms (CUDA events, one trial)")
+    check(e64.shape == (30,) and np.all(np.isfinite(e64)),
+          "bench float64 output malformed")
+
+    # The error ablation's five rows beside the JAX package's record.
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "ablation.json")
+        drive(15, lambda: error_ablation.main(["--out", out_path]), all4)
+        with open(out_path) as f:
+            rows = json.load(f)["configs"]
+    with open(os.path.join(here, "results", "error_ablation.json")) as f:
+        jax_rows = json.load(f)["configs"]
+    for name, row in rows.items():
+        ref = jax_rows[name]
+        print(f"[15] ablation {name} {card}: mean {row['mean_error_pct']:.5f} "
+              f"%, max {row['max_error_pct']:.5f} %, median "
+              f"{row['median_error_pct']:.5f} % (JAX record: mean "
+              f"{ref['mean_error_pct']:.5f} %, max {ref['max_error_pct']:.5f} "
+              f"%)")
+        check(len(row["per_surface_error_pct"]) == 30
+              and np.all(np.isfinite(row["per_surface_error_pct"])),
+              f"ablation row {name} malformed")
+    check(list(rows) == list(jax_rows), "ablation rows differ from JAX's")
+    check(rows["default"]["mean_error_pct"] <= 0.03,
+          "ablation default row above 0.03 %")
+
+    # The winner-only LM polish and the Wolfe polish on the first two bench
+    # sets (the ablation above has the winner-only accuracy over all six):
+    # each set's wall (CUDA events) and polish trips (K3 launches for the
+    # LM, K2<double> launches for the Wolfe L-BFGS).
+    sets15 = tbench.build_problems(2)
+
+    def winner_polish(trip_kernel, **kw):
+        walls, trips, errs = [], [], []
+        for args_, truth_ in sets15:
+            before = loss_kernel.LAUNCHES[trip_kernel]
+            with CudaTimer() as t_:
+                out_ = tbench.calibrate(args_, "mixed", **kw)
+            walls.append(t_.ms)
+            trips.append(loss_kernel.LAUNCHES[trip_kernel] - before)
+            errs.append(tbench.errors_pct(out_, truth_))
+            check(bool(torch.isfinite(out_.model_prices).all())
+                  and out_.per_start_x.shape == (5, 3, 13),
+                  "winner-only polish output malformed")
+        return walls, trips, np.concatenate(errs)
+
+    for label, trip_kernel, kw, kernels in (
+            ("winner-only LM polish", "cos_vg_jac",
+             dict(polish_all_starts=False), ["cos_price_f64", "cos_vg_jac"]),
+            ("Wolfe L-BFGS polish (POLISH_LBFGS)", "cos_vg_loss_f64",
+             dict(polish=calibrator.POLISH_LBFGS),
+             ["cos_vg_loss_f64", "cos_price_f64"])):
+        w_, tr_, e_ = drive(15, lambda: winner_polish(trip_kernel, **kw),
+                            kernels)
+        print(f"[15] {label}, 2 sets x 5 surfaces {card}: mean err "
+              f"{e_.mean():.5f} %, max {e_.max():.5f} %; polish trips per "
+              f"set {tr_}; walls per set {[round(w, 2) for w in w_]} ms "
+              f"(CUDA events; search included)")
+
+    # The host pricer, the Greeks and the implied vols: card against CPU.
+    true0, spots0 = tbench.truths(0), np.full(5, 100.0)
+    host = drive(15, lambda: price_truth_subprocess(
+        true0, spots0, tbench.STRIKES, tbench.MATS), ["cos_price_f64"])
+    host_cpu = price_truth_subprocess(true0, spots0, tbench.STRIKES,
+                                      tbench.MATS, device="cpu")
+    rel = float(np.max(np.abs(host / host_cpu - 1)))
+    print(f"[15] host pricer 5 x 15 on the card vs the CPU: max rel "
+          f"{rel:.3e} (rtol 1e-11)")
+    check(rel <= 1e-11, "host pricer on the card disagrees with the CPU")
+    p0 = port.DHParams(*(float(v) for v in true0[0]))
+    call15 = np.ones(15, bool)
+
+    def sensitivities(device):
+        return (port.greeks(p0, 100.0, 0.03, tbench.STRIKES, tbench.MATS,
+                            call15, device=device),
+                port.param_sensitivities(p0, 100.0, 0.03, tbench.STRIKES,
+                                         tbench.MATS, call15, device=device),
+                implied_vol_surface(host_cpu[0], 100.0, tbench.STRIKES,
+                                    tbench.MATS, 0.03, device=device))
+
+    g_card, s_card, iv_card = drive(15, lambda: sensitivities(dev), [])
+    check(sum(path_launches_last.values()) == 0,
+          "the Greeks launched a kernel (they are plain torch)")
+    g_cpu, s_cpu, iv_cpu = sensitivities("cpu")
+    g_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(g_card, g_cpu))
+    s_rel = max(float((s_card[k].cpu() - v).abs().max() / v.abs().max())
+                for k, v in s_cpu.items())
+    iv_rel = float(((iv_card.cpu() - iv_cpu).abs() / iv_cpu).max())
+    print(f"[15] greeks on the card vs the CPU: {g_rel:.3e} of each field's "
+          f"max;"
+          f"param_sensitivities {s_rel:.3e} of each column's max (tol 1e-10); "
+          f"implied vols of bench surface 0 "
+          f"{np.round(iv_card.cpu().numpy(), 5).tolist()}, card vs CPU "
+          f"{iv_rel:.3e}")
+    check(all(bool(torch.isfinite(a).all()) for a in g_card)
+          and bool(torch.isfinite(iv_card).all()),
+          "greeks or implied vols not finite")
+    check(g_rel <= 1e-10 and s_rel <= 1e-10 and iv_rel <= 1e-10,
+          "greeks / implied vols on the card disagree with the CPU")
+    lap(None)
+    print(f"[walls] {json.dumps(walls)}")
 
     for name, n in path_launches.items():
         record.setdefault(name, {})["launches"] = n

@@ -24,7 +24,9 @@ Quick start::
                                        maturities, is_call, market_prices)
 
 Training a surrogate (``fit``, ``pretrain_and_finetune``; the whole
-two-stage pipeline is ``tools/train_pipeline.py``) runs on ``cuda`` too.
+two-stage pipeline is ``tools/train_pipeline.py``) runs on ``cuda`` too,
+as do the Greeks (``greeks``, ``param_sensitivities``) and the
+Black–Scholes functions. The benchmark is ``tools/bench.py``.
 """
 from .models.double_heston import (
     DHParams, PARAM_NAMES, char_fn, payoff_coefficients, price_options,
@@ -32,11 +34,15 @@ from .models.double_heston import (
 from .ops.cos_kernel import price_surfaces
 from .calibration.calibrator import (
     BatchCalibration, DoubleHestonJumpCalibrator, calibrate_batch,
-    calibrate_batch_mixed, calibrate_surface, options_to_arrays)
+    calibrate_batch_fused, calibrate_batch_mixed, calibrate_surface,
+    options_to_arrays)
 from .calibration.loss import feller_penalty, make_loss_fn, surface_loss
 from .calibration.transforms import (
-    inverse_transform, transform, transform_to_params)
+    inverse_transform, params_to_x, transform, transform_to_params)
 from .calibration.initial_guess import initial_guesses
+from .models.greeks import Greeks, greeks, param_sensitivities
+from .ops.black_scholes import bs_price, bs_vega, implied_vol
+from .ops.lbfgs import lbfgs_minimize
 from .ops.lbfgs_batched import LBFGSResult, lbfgs_minimize_batched
 from .utils.config import (
     CalibrationConfig, GeneratorConfig, LBFGSConfig, LMConfig, PricerConfig,
@@ -58,14 +64,20 @@ from .utils.checkpoint import (
     load_batch_calibration, load_surrogate_state, save_batch_calibration,
     save_surrogate_state)
 
+__version__ = "0.1.0"
+
 __all__ = [
     "DHParams", "PARAM_NAMES", "char_fn", "payoff_coefficients",
     "price_options", "price_single", "truncation_range", "price_surfaces",
     "BatchCalibration", "DoubleHestonJumpCalibrator", "calibrate_batch",
-    "calibrate_batch_mixed", "calibrate_surface", "options_to_arrays",
+    "calibrate_batch_fused", "calibrate_batch_mixed", "calibrate_surface",
+    "options_to_arrays",
     "feller_penalty", "make_loss_fn", "surface_loss",
-    "inverse_transform", "transform", "transform_to_params",
-    "initial_guesses", "LBFGSResult", "lbfgs_minimize_batched",
+    "inverse_transform", "params_to_x", "transform", "transform_to_params",
+    "initial_guesses",
+    "Greeks", "greeks", "param_sensitivities",
+    "bs_price", "bs_vega", "implied_vol",
+    "LBFGSResult", "lbfgs_minimize", "lbfgs_minimize_batched",
     "CalibrationConfig", "GeneratorConfig", "LBFGSConfig", "LMConfig",
     "PricerConfig", "SurfaceSpec",
     "CalibrationResult", "write_benchmark_json",
@@ -79,4 +91,5 @@ __all__ = [
     "pretrain_and_finetune",
     "load_batch_calibration", "load_surrogate_state",
     "save_batch_calibration", "save_surrogate_state",
+    "__version__",
 ]

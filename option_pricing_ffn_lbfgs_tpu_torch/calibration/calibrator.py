@@ -12,7 +12,12 @@ Port of the JAX package's ``calibration/calibrator.py`` main path
     K1<double> and the float32 Jacobian from K3; the winner is picked on
     the polished loss. With at least ``polish_compact_min_lanes`` lanes the
     polish runs a short stage A, then compacted waves that continue only
-    the lanes still unconverged and still able to win.
+    the lanes still unconverged and still able to win. With
+    ``polish_all_starts=False``, or a Wolfe L-BFGS polish (an
+    ``LBFGSConfig`` such as ``POLISH_LBFGS``), only the float32 search
+    winner is polished: by the LM as above, or by the batched flat L-BFGS
+    on the float64 loss with K2<double> as its value-and-grad, the model
+    repriced by K1<double>.
 
 The single-surface API (``calibrate_surface``,
 ``DoubleHestonJumpCalibrator``) runs the same batched engine on one
@@ -42,7 +47,8 @@ from ..ops.lbfgs_batched import lbfgs_minimize_batched
 from ..ops.levenberg_marquardt import LMResult, lm_minimize_batched
 from ..ops.loss_kernel import (make_batch_residual_jacobian,
                                make_batch_value_and_grad)
-from ..utils.config import CalibrationConfig, LMConfig, validate_calibration
+from ..utils.config import (CalibrationConfig, LBFGSConfig, LMConfig,
+                            validate_calibration)
 from ..utils.results import CalibrationResult
 from .initial_guess import initial_guesses
 from .loss import loss_from_prices, residuals_from_prices
@@ -64,6 +70,10 @@ class BatchCalibration(NamedTuple):
 
 # Default polish: LM on the residual vector (the JAX package's POLISH_LM).
 POLISH_LM = LMConfig(maxiter=80, ftol=1e-15, gtol=1e-11, cost_target=1e-10)
+
+# The Wolfe L-BFGS polish (the JAX package's POLISH_LBFGS): from the
+# search winner down to the float64 floor.
+POLISH_LBFGS = LBFGSConfig(maxiter=60, ftol=1e-14, gtol=1e-10)
 
 # (live lanes, padded lanes) of each compacted wave of the most recent
 # calibrate_batch_mixed call; empty when the polish ran in one stage.
@@ -153,6 +163,11 @@ def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
         per_start_loss=shape2(res.f), per_start_x=xs)
 
 
+# The JAX package's calibrate_batch_fused (the batched engine over every
+# (surface, start) lane) is what the port's calibrate_batch is.
+calibrate_batch_fused = calibrate_batch
+
+
 def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
                         lane_mkt, x0, lam0, config: CalibrationConfig,
                         polish: LMConfig):
@@ -192,6 +207,32 @@ def _polish_starts_fused(spots, rate, strikes, maturities, is_call,
         rep(market_prices), x0.reshape(b * s, 13), None, config, polish)
     shape2 = lambda a: a.reshape(b, s, *a.shape[1:])
     return LMResult(*map(shape2, res)), shape2(params_vec), shape2(model)
+
+
+def _polish_winners(spots, rate, strikes, maturities, is_call,
+                    market_prices, x0, config: CalibrationConfig, polish):
+    """Polish one start per surface, ``x0 [B, 13]`` (float64 inputs).
+
+    An ``LMConfig`` polish is ``_polish_lanes_fused`` at
+    ``config.polish_n_terms``: K1<double> residuals, the K3 Jacobian. An
+    ``LBFGSConfig`` polish is the batched flat L-BFGS on the loss at
+    ``config.pricer.n_terms`` with K2<double> as its value-and-grad, the
+    model repriced by K1<double> (the JAX package's ``_polish_core``).
+    Returns (result, params [B, 13], model prices [B, n_opt]); the result
+    has ``x``, ``f``, ``n_iters``, ``n_evals`` and ``converged``."""
+    if isinstance(polish, LMConfig):
+        return _polish_lanes_fused(spots, rate, strikes, maturities, is_call,
+                                   market_prices, x0, None,
+                                   _polish_pricer_config(config), polish)
+    vg = make_batch_value_and_grad(spots, strikes, maturities, is_call,
+                                   market_prices, rate, config)
+    res = lbfgs_minimize_batched(vg, x0, polish)
+    params_vec = transform(res.x)
+    pc = config.pricer
+    model = price_surfaces(params_vec, spots, rate, strikes, maturities,
+                           is_call, n_terms=pc.n_terms, L=pc.trunc_L,
+                           q=pc.dividend_yield)
+    return res, params_vec, model
 
 
 def _polish_pricer_config(config: CalibrationConfig) -> CalibrationConfig:
@@ -261,18 +302,31 @@ def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
                           market_prices,
                           generator: Optional[torch.Generator] = None,
                           config: CalibrationConfig = CalibrationConfig(),
-                          n_starts: int = 3, polish: LMConfig = POLISH_LM,
-                          x0=None, device=None) -> BatchCalibration:
+                          n_starts: int = 3, polish=POLISH_LM,
+                          x0=None, device=None,
+                          polish_all_starts: bool = True) -> BatchCalibration:
     """Mixed-precision batch calibration: float32 multi-start search, then
-    a float64 LM polish of every start, winner picked on the polished loss.
+    a float64 polish.
 
     The search prices at ``config.search_n_terms`` with at most
-    ``config.search_maxeval`` evaluations per lane; the polish prices at
-    ``config.polish_n_terms``. ``iterations`` adds the search winner's
-    iterations to the polished winner's; ``n_evals`` adds the polish
-    evaluations of all starts; ``converged`` is the polished winner's flag;
-    ``per_start_x`` holds every polished start (its winner row equals
-    ``x``). ``WAVE_LANES`` records the compacted waves.
+    ``config.search_maxeval`` evaluations per lane. ``polish`` is an
+    ``LMConfig`` (default ``POLISH_LM``) or an ``LBFGSConfig`` (e.g.
+    ``POLISH_LBFGS``).
+
+    With an LM polish and ``polish_all_starts`` (the default) every start
+    is polished at ``config.polish_n_terms`` and the winner is picked on
+    the polished loss: ``iterations`` adds the search winner's iterations
+    to the polished winner's, ``n_evals`` adds the polish evaluations of
+    all starts, ``converged`` is the polished winner's flag, and
+    ``per_start_x`` holds every polished start. ``WAVE_LANES`` records the
+    compacted waves.
+
+    Otherwise only the search winner is polished (``_polish_winners``):
+    ``loss`` is its polished loss, ``iterations`` and ``n_evals`` add the
+    search winner's counts to the polish's, ``per_start_loss`` is the
+    search's losses at float64, and ``per_start_x`` the search's iterates
+    with the winner's row replaced by its polished ``x``. Either way the
+    winner's row of ``per_start_x`` equals ``x``.
     """
     validate_calibration(config, polish)
     dev = _device_of(market_prices, device)
@@ -290,8 +344,22 @@ def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
     f64 = torch.float64
     spots, strikes, maturities, is_call, mkt = _inputs(
         spots, strikes, maturities, is_call, market_prices, f64, dev)
-    polish_config = _polish_pricer_config(config)
     b = spots.shape[0]
+    if not (polish_all_starts and isinstance(polish, LMConfig)):
+        res, params_vec, model = _polish_winners(
+            spots, rate, strikes, maturities, is_call, mkt, out32.x.to(f64),
+            config, polish)
+        _, win32 = _winner(out32.per_start_loss)
+        per_start_x = out32.per_start_x.to(f64, copy=True)
+        per_start_x[torch.arange(b, device=dev), win32] = res.x
+        return BatchCalibration(
+            x=res.x, params=params_vec, loss=res.f, model_prices=model,
+            iterations=out32.iterations + res.n_iters,
+            n_evals=out32.n_evals + res.n_evals, converged=res.converged,
+            per_start_loss=out32.per_start_loss.to(f64),
+            per_start_x=per_start_x)
+
+    polish_config = _polish_pricer_config(config)
     compact = b * n_starts >= config.polish_compact_min_lanes
     stage_a = (dataclasses.replace(polish,
                                    maxiter=config.polish_stage_a_maxiter)

@@ -62,3 +62,8 @@ def inverse_transform(p: torch.Tensor) -> torch.Tensor:
 def transform_to_params(x: torch.Tensor) -> DHParams:
     """Unconstrained vector(s) -> DHParams."""
     return DHParams.from_vector(transform(x))
+
+
+def params_to_x(params: DHParams) -> torch.Tensor:
+    """DHParams -> unconstrained vector(s)."""
+    return inverse_transform(params.to_vector())

@@ -7,13 +7,15 @@ train / compare, with the JAX package's flags plus ``--device`` (default
   python -m option_pricing_ffn_lbfgs_tpu_torch calibrate --data d.pkl --index 0
   python -m option_pricing_ffn_lbfgs_tpu_torch benchmark --n-surfaces 5 --out r.json
   python -m option_pricing_ffn_lbfgs_tpu_torch train --pretrain a.npz --finetune b.pkl --out ffn.pkl
-  python -m option_pricing_ffn_lbfgs_tpu_torch compare --n-eval 5 --out-dir results
+  python -m option_pricing_ffn_lbfgs_tpu_torch compare --n-eval 5 --out-dir DIR
 
 ``--f64`` (before the subcommand) computes in float64, as in the JAX
 package. ``--device cuda`` without a CUDA card is an error: nothing falls
 back to the CPU; ``--device cpu`` runs the kernels' plain versions.
 ``compare`` without ``--surrogate`` quick-trains one on its dataset, as
-the JAX package does.
+the JAX package does. Its ``--out-dir`` defaults to ``compare_results``
+(the JAX CLI's default, ``results``, holds the JAX package's committed
+record, which a run from the repository's root would overwrite).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import numpy as np
 import torch
 
 from .utils.timing import synchronize
+
+COMPARE_OUT_DIR = "compare_results"
 
 
 def _device(args) -> torch.device:
@@ -261,7 +265,7 @@ def build_parser():
                     help="trained surrogate (.pkl); quick-trained if absent")
     cp.add_argument("--n-eval", type=int, default=5)
     cp.add_argument("--seed", type=int, default=0)
-    cp.add_argument("--out-dir", default="results")
+    cp.add_argument("--out-dir", default=COMPARE_OUT_DIR)
 
     t = sub.add_parser("train", parents=[dev],
                        help="train the FFN surrogate")

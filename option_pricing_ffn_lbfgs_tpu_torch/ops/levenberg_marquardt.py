@@ -1,7 +1,8 @@
-"""Batched Levenberg–Marquardt for the 13-parameter least-squares polish.
+"""Levenberg–Marquardt for the 13-parameter least-squares polish.
 
-Port of the JAX package's ``ops/levenberg_marquardt.py::
-lm_minimize_batched``: each lane solves the damped normal equations
+Port of the JAX package's ``ops/levenberg_marquardt.py``:
+``lm_minimize_batched`` (the engine) and ``lm_minimize`` (one lane, a
+thin layer over the engine). Each lane solves the damped normal equations
 ``(J^T J + lam diag(J^T J)) dx = -J^T r`` by Cholesky and accepts a step
 only if the true (high-precision) cost decreases; the stopping tests
 (gtol, ftol incl. the rejected-step stall, xtol incl. the rejection-side
@@ -30,6 +31,34 @@ class LMResult(NamedTuple):
     n_evals: torch.Tensor    # residual (+Jacobian) evaluations [L]
     converged: torch.Tensor  # hit gtol/ftol/xtol/cost_target [L]
     lam: torch.Tensor        # final damping, the warm start of a continuation
+
+
+def lm_minimize(residual_fn: Callable, x0: torch.Tensor,
+                config: LMConfig = LMConfig(),
+                jac_residual_fn: Callable = None,
+                lam0=None) -> LMResult:
+    """Minimize ``sum(residual_fn(x)**2)`` from ``x0 [d]`` (one lane; the
+    result's fields have no lane axis).
+
+    ``residual_fn`` maps ``[d] -> [m]`` (plain torch code); its Jacobian is
+    ``torch.func.jacfwd`` of it. ``jac_residual_fn``: an optional
+    lower-precision twin of ``residual_fn`` used only for the Jacobian,
+    evaluated at ``x`` cast to float32 and cast back, as in JAX.
+    ``lam0``: an optional initial damping (a previous result's ``lam``, to
+    continue that solve).
+    """
+    if jac_residual_fn is None:
+        jac = lambda x: torch.func.jacfwd(residual_fn)(x)
+    else:
+        jac = lambda x: torch.func.jacfwd(jac_residual_fn)(
+            x.to(torch.float32))
+    if lam0 is not None:
+        lam0 = torch.as_tensor(lam0, dtype=x0.dtype,
+                               device=x0.device).reshape(1)
+    res = lm_minimize_batched(lambda x: residual_fn(x[0])[None], x0[None],
+                              config, jac_fn=lambda x: jac(x[0])[None],
+                              lam0=lam0)
+    return LMResult(*(a[0] for a in res))
 
 
 class _State(NamedTuple):

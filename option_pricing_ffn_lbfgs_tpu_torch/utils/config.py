@@ -10,9 +10,11 @@ The port has ONE calibration engine: batched flat L-BFGS whose
 value-and-grad is the K2 kernel, then a batched Levenberg–Marquardt polish
 of every start whose residuals are priced at float64 by K1 and whose
 float32 Jacobian comes from K3, with compacted waves for the convergence
-tail. Several fields exist in the JAX package only to choose between TPU
-workarounds; on the port each accepted value selects that one engine, and
-any other value raises ``ValueError`` (``validate_calibration``):
+tail (or, with ``polish_all_starts=False`` or an ``LBFGSConfig`` polish,
+a polish of the search winner alone). Several fields exist in the JAX
+package only to choose between TPU workarounds; on the port each
+accepted value selects that one engine, and any other value raises
+``ValueError`` (``validate_calibration``):
 
   * ``CalibrationConfig.search_impl`` in {"vmap", "batched", "pallas"};
   * ``CalibrationConfig.polish_impl`` in {"vmap", "pallas"};
@@ -21,7 +23,10 @@ any other value raises ``ValueError`` (``validate_calibration``):
   * ``LMConfig.residual_impl`` in {"dd", "native"} — the double-float
     residual exists in JAX because XLA:TPU emulates float64; the H100 has
     native FP64, so both values price the residuals at float64;
-  * ``LMConfig.f32_jacobian`` must be True (the K3 Jacobian is float32).
+  * ``LMConfig.f32_jacobian`` must be True (the K3 Jacobian is float32);
+  * ``LBFGSConfig.flat`` picks the engine of ``ops/lbfgs.py::
+    lbfgs_minimize`` (one lane); the batched engine of the search and of
+    the Wolfe polish walks the same trajectory either way.
 """
 from __future__ import annotations
 
@@ -39,8 +44,9 @@ class PricerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LBFGSConfig:
-    """Batched L-BFGS settings. ``flat`` is accepted for parity with the
-    JAX config; the port only has the flat state machine."""
+    """L-BFGS settings. ``flat`` selects ``lbfgs_minimize``'s engine (the
+    flat state machine or the nested oracle, which walk the same
+    trajectory); the batched engine ignores it."""
     maxiter: int = 300
     history: int = 10
     ftol: float = 1e-9
@@ -125,10 +131,11 @@ _POLISH_IMPLS = ("vmap", "pallas")
 _RESIDUAL_IMPLS = ("dd", "native")
 
 
-def validate_calibration(config: CalibrationConfig,
-                         polish: LMConfig = None) -> None:
+def validate_calibration(config: CalibrationConfig, polish=None) -> None:
     """Raise ``ValueError`` for a setting the port's one engine cannot run
-    (the polish settings are checked when ``polish`` is given)."""
+    (the polish settings are checked when ``polish`` is given: an
+    ``LBFGSConfig`` runs as it is, an ``LMConfig`` as the module docstring
+    says)."""
     if config.search_impl not in _SEARCH_IMPLS:
         raise ValueError(f"search_impl must be one of {_SEARCH_IMPLS}, "
                          f"got {config.search_impl!r}")
@@ -137,10 +144,10 @@ def validate_calibration(config: CalibrationConfig,
                          f"got {config.polish_impl!r}")
     if config.polish_fused_min_lanes < 0:
         raise ValueError("polish_fused_min_lanes must be >= 0")
-    if polish is None:
+    if polish is None or isinstance(polish, LBFGSConfig):
         return
     if not isinstance(polish, LMConfig):
-        raise ValueError("the port polishes with Levenberg–Marquardt only; "
+        raise ValueError("polish must be an LMConfig or an LBFGSConfig; "
                          f"got {type(polish).__name__}")
     if polish.residual_impl not in _RESIDUAL_IMPLS:
         raise ValueError(f"residual_impl must be one of {_RESIDUAL_IMPLS}, "

@@ -144,6 +144,17 @@ def test_compare_quick_trains(tmp_path, monkeypatch, capsys):
     assert seen["n"] == 40 and seen["device"] == torch.device("cpu")
 
 
+def test_compare_default_out_dir_is_not_results():
+    """``compare``'s default ``--out-dir``, taken from the repository's
+    root, must not be ``results/``: run_comparison writes three files that
+    results/ holds as the JAX package's record (lbfgs_actual_results.json,
+    hybrid_actual_results.json, COMPARISON_TABLE.txt)."""
+    args = tcli.build_parser().parse_args(["compare"])
+    out = (RESULTS.parent / args.out_dir).resolve()
+    assert out != RESULTS.resolve() and RESULTS.resolve() not in out.parents
+    assert not (out / "lbfgs_actual_results.json").exists()
+
+
 def _keys(d):
     return {k: _keys(v) if isinstance(v, dict) else None
             for k, v in d.items()}

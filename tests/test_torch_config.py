@@ -71,6 +71,11 @@ def test_rejected_settings(cfg, polish):
 
 
 def test_lbfgs_polish_rejected():
+    """The Wolfe L-BFGS polish (an LBFGSConfig, either engine flag) runs
+    on the port now; a polish of any other type is still rejected."""
+    for flat in (True, False):
+        tcfg.validate_calibration(tcfg.CalibrationConfig(),
+                                  tcfg.LBFGSConfig(flat=flat))
     with pytest.raises(ValueError):
         tcfg.validate_calibration(tcfg.CalibrationConfig(),
-                                  tcfg.LBFGSConfig())
+                                  tcfg.PricerConfig())

@@ -1,5 +1,10 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
+The entry points added with the benchmark (the Greeks, Black–Scholes, the
+host pricer, ``tools/bench.py`` and ``tools/error_ablation.py``) are
+called with numpy inputs: without a card the default raises, and
+``device="cpu"`` (or CPU tensors) runs them on the CPU.
+
 ``device=None`` resolves to the device of a tensor input, else to
 ``cuda``; there is no CPU fallback. Each entry point is called with numpy
 inputs and its first placement of the inputs is intercepted, so the tests
@@ -15,7 +20,14 @@ import torch
 import option_pricing_ffn_lbfgs_tpu_torch as port
 from option_pricing_ffn_lbfgs_tpu_torch.calibration import calibrator as tcal
 from option_pricing_ffn_lbfgs_tpu_torch.data import synthetic as tsyn
+from option_pricing_ffn_lbfgs_tpu_torch.calibration.initial_guess import (
+    GUESS0)
+from option_pricing_ffn_lbfgs_tpu_torch.ops import black_scholes as tbs
 from option_pricing_ffn_lbfgs_tpu_torch.surrogate import hybrid as thyb
+from option_pricing_ffn_lbfgs_tpu_torch.tools import bench as tbench
+from option_pricing_ffn_lbfgs_tpu_torch.tools import error_ablation
+from option_pricing_ffn_lbfgs_tpu_torch.utils.hostpricer import (
+    price_truth_subprocess)
 
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 
@@ -111,3 +123,72 @@ def test_dataset_from_numpy_draws_defaults_to_cuda(monkeypatch):
         tsyn.dataset_from_draws(np.zeros((2, 13)), np.zeros(2),
                                 np.zeros((2, 15)), port.GeneratorConfig())
     assert seen == [CUDA]
+
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default does not raise")
+
+
+_STRIKES = np.tile([90.0, 100.0, 110.0], 2)
+_MATS = np.repeat([0.5, 1.0], 3)
+_CALL = np.ones(6, bool)
+_PRICES = np.array([13.26, 6.88, 2.87, 15.08, 9.41, 5.29])   # vol ~ 0.2
+_PARAMS = port.DHParams(*(float(v) for v in GUESS0))
+
+_NEW_ENTRIES = {
+    "greeks": lambda **kw: port.greeks(
+        _PARAMS, 100.0, 0.03, _STRIKES, _MATS, _CALL, n_terms=16, **kw)[1],
+    "param_sensitivities": lambda **kw: port.param_sensitivities(
+        _PARAMS, 100.0, 0.03, _STRIKES, _MATS, _CALL, n_terms=16,
+        **kw)["sigma1"],
+    "bs_price": lambda **kw: port.bs_price(100.0, _STRIKES, _MATS, 0.03,
+                                           0.2, **kw),
+    "bs_vega": lambda **kw: port.bs_vega(100.0, _STRIKES, _MATS, 0.03, 0.2,
+                                         **kw),
+    "implied_vol": lambda **kw: port.implied_vol(
+        _PRICES, 100.0, _STRIKES, _MATS, 0.03, max_iter=8, **kw),
+    "implied_vol_surface": lambda **kw: tbs.implied_vol_surface(
+        _PRICES, 100.0, _STRIKES, _MATS, 0.03, **kw),
+    "price_truth_subprocess": lambda **kw: torch.as_tensor(
+        price_truth_subprocess(np.tile(GUESS0, (2, 1)), np.full(2, 100.0),
+                               _STRIKES, _MATS, **kw)),
+}
+
+
+@pytest.mark.parametrize("entry", list(_NEW_ENTRIES))
+def test_new_entry_points_default_to_cuda(entry):
+    """Numpy inputs without ``device`` go to ``cuda``: without a card the
+    call raises, it does not fall back to the CPU."""
+    _no_card()
+    with pytest.raises((AssertionError, RuntimeError)):
+        _NEW_ENTRIES[entry]()
+
+
+@pytest.mark.parametrize("entry", list(_NEW_ENTRIES))
+def test_new_entry_points_run_on_cpu_when_asked(entry):
+    out = _NEW_ENTRIES[entry](device="cpu")
+    assert out.device == CPU and bool(torch.isfinite(out).all())
+
+
+def test_sensitivities_follow_cpu_tensors():
+    t = lambda a: torch.tensor(a)
+    g = port.greeks(_PARAMS, 100.0, 0.03, t(_STRIKES), t(_MATS), t(_CALL),
+                    n_terms=16)
+    assert g.delta.device == CPU
+    assert port.bs_price(t(100.0), _STRIKES, _MATS, 0.03, 0.2).device == CPU
+
+
+def test_bench_and_ablation_need_a_card(tmp_path):
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        tbench.run("mixed")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        tbench.build_probe()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        error_ablation.main(["--out", str(tmp_path / "a.json")])
+    with pytest.raises((AssertionError, RuntimeError)):
+        tbench.build_problems(1)
+    args, prices = tbench.build_problems(1, device="cpu")[0]
+    assert args[0].device == CPU and prices.shape == (5, 15)

@@ -510,3 +510,147 @@ def test_fit_one_epoch_card_vs_cpu(cuda, monkeypatch):
     assert abs(h_g["val_loss"][0] / h_c["val_loss"][0] - 1.0) <= 1e-3
     assert abs(h_g["train_loss"][0] / h_c["train_loss"][0] - 1.0) <= 1e-3
     assert next(s_g.model.parameters()).device.type == "cpu"
+
+
+# Truncation width and dividend yield away from 10 / 0: both together,
+# q alone, L alone.
+LQ = [(12.0, 0.02), (10.0, 0.02), (12.0, 0.0)]
+LQ_IDS = ["L12_q002", "q_alone", "L_alone"]
+
+
+@pytest.mark.parametrize("L,q", LQ, ids=LQ_IDS)
+@pytest.mark.parametrize("kernel", ["K1<float>", "K1<double>", "K2", "K3",
+                                    "K2<double>"])
+def test_kernels_at_L_and_q(cuda, kernel, L, q):
+    """Every kernel against its plain version at the same L and q, with
+    the tolerances of its default-L/q checks above. K1<float> is held to
+    the plain version at float64 on the same inputs (the float32 bar,
+    8e-5): at L = 12 float32 keeps fewer digits of the wider series, and
+    the kernel and the plain float32 version, each within the bar of
+    float64, can round to opposite sides (8.07e-5 apart in chip_smoke.py
+    phase 3)."""
+    n_terms = 64
+    if kernel.startswith("K1"):
+        dt, rtol = (F64, 1e-11) if kernel == "K1<double>" else (F32, 8e-5)
+        params, spots, strikes, mats, ic = _problem(17, 5, seed=23)
+        args = lambda d: [torch.tensor(a, dtype=d, device=cuda)
+                          for a in (params, spots, strikes, mats)]
+        call = torch.tensor(ic, device=cuda)
+        out = cos_kernel.price_surfaces(*args(dt)[:2], 0.03, *args(dt)[2:],
+                                        call, n_terms=n_terms, L=L, q=q)
+        ref = cos_kernel.price_surfaces_plain(*args(F64)[:2], 0.03,
+                                              *args(F64)[2:], call,
+                                              n_terms=n_terms, L=L, q=q)
+        torch.cuda.synchronize()
+        assert out.dtype == dt
+        np.testing.assert_allclose(out.double().cpu().numpy(),
+                                   ref.cpu().numpy(), rtol=rtol)
+        return
+    dt = F64 if kernel == "K2<double>" else F32
+    rng = np.random.default_rng(29)
+    true = _vec(TRUE) * (1.0 + rng.uniform(-0.3, 0.3, (6, 13)))
+    t = lambda a: torch.as_tensor(a, dtype=dt).to(cuda)
+    spots, strikes, mats = (t(np.full(6, 100.0)), t(np.tile(STRIKES, (6, 1))),
+                            t(np.tile(MATS, (6, 1))))
+    call = torch.tensor(np.tile(np.arange(15) % 4 != 0, (6, 1)), device=cuda)
+    mkt = cos_kernel.price_surfaces_plain(
+        t(np.stack([_vec(TRUE)] * 6)), spots, 0.03, strikes, mats, call,
+        n_terms=n_terms)
+    args = (t(true), spots, 0.03, strikes, mats, call, mkt, n_terms, L, q)
+    if kernel == "K3":
+        out = loss_kernel.rows_jacobian(*args)
+        ref = loss_kernel.rows_jacobian_plain(*args)
+        scale = ref[1].abs().max()
+    else:
+        out = loss_kernel.rows_value_and_grad(*args)
+        ref = loss_kernel.rows_value_and_grad_plain(*args)
+        scale = ref[1].abs().amax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    price_rtol, grad_atol = (1e-11, 1e-9) if dt == F64 else (8e-5, 5e-3)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].cpu().numpy(),
+                               rtol=price_rtol)
+    np.testing.assert_allclose((out[1] / scale).cpu().numpy(),
+                               (ref[1] / scale).cpu().numpy(), atol=grad_atol)
+
+
+@pytest.mark.parametrize("kind", ["lm_winner_only", "wolfe"])
+def test_winner_polishes_card_vs_cpu(cuda, kind):
+    """One bench set (tools/bench.py, set 0): calibrate_batch_mixed with
+    the polish of the search winner alone launches its kernels (K1<double>
+    and K3; K2<double> and K1<double>); then the polish alone from the
+    same float32 search winners on the card and on the CPU. The Wolfe
+    polish is float64 throughout and holds 1e-6 on the losses and 1e-7 on
+    the prices over 8 iterations; at full length, and for the LM (whose
+    Jacobian is float32, K3 against its plain version), the outcome: model
+    prices within 2e-4 relative."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import bench
+    polish, all_starts, kernels = {
+        "lm_winner_only": (calibrator.POLISH_LM, False,
+                           ("cos_price_f64", "cos_vg_jac")),
+        "wolfe": (calibrator.POLISH_LBFGS, True,
+                  ("cos_vg_loss_f64", "cos_price_f64")),
+    }[kind]
+    (args, truth), = bench.build_problems(1, device=cuda)
+    before = {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES}
+    out = bench.calibrate(args, "mixed", polish=polish,
+                          polish_all_starts=all_starts)
+    torch.cuda.synchronize()
+    after = {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES}
+    assert all(after[k] > before[k] for k in kernels), (before, after)
+    assert bool(torch.isfinite(out.model_prices).all())
+    cfg = CalibrationConfig()
+    search = dataclasses.replace(
+        cfg, pricer=PricerConfig(n_terms=cfg.search_n_terms),
+        lbfgs=dataclasses.replace(cfg.lbfgs, maxeval=cfg.search_maxeval))
+    data = args[:5]
+    x = port.calibrate_batch(data[0], 0.03, *data[1:],
+                             torch.Generator().manual_seed(0), search,
+                             3).x.to(F64)
+    checks = [(polish, 2e-4, None)]
+    if kind == "wolfe":
+        checks.insert(0, (dataclasses.replace(polish, maxiter=8), 1e-7, 1e-6))
+    for p, prtol, ftol in checks:
+        res_g, _, model_g = calibrator._polish_winners(
+            data[0], 0.03, *data[1:], x, cfg, p)
+        cpu = [a.cpu() for a in data]
+        res_c, _, model_c = calibrator._polish_winners(
+            cpu[0], 0.03, *cpu[1:], x.cpu(), cfg, p)
+        np.testing.assert_allclose(model_g.cpu().numpy(), model_c.numpy(),
+                                   rtol=prtol)
+        if ftol is not None:
+            np.testing.assert_allclose(res_g.f.cpu().numpy(),
+                                       res_c.f.numpy(), rtol=ftol)
+
+
+def test_greeks_card_vs_cpu(cuda):
+    """Greeks, parameter sensitivities, implied vols and the host pricer on
+    the card against the CPU, float64: 1e-10 relative (sensitivities to
+    1e-10 of each parameter's largest entry)."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import black_scholes
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.hostpricer import (
+        price_truth_subprocess)
+    params = port.DHParams.from_dict(DEMO)
+    call = np.arange(15) % 4 != 0
+    on = {dev: port.greeks(params, 100.0, 0.03, STRIKES, MATS, call,
+                           device=dev) for dev in (cuda, "cpu")}
+    for name, a, b in zip(on["cpu"]._fields, on[cuda], on["cpu"]):
+        assert a.device.type == "cuda", name
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10,
+                                   err_msg=name)
+    sens = {dev: port.param_sensitivities(params, 100.0, 0.03, STRIKES, MATS,
+                                          call, device=dev)
+            for dev in (cuda, "cpu")}
+    for name, col in sens["cpu"].items():
+        np.testing.assert_allclose(sens[cuda][name].cpu().numpy(),
+                                   col.numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(col.abs().max()))
+    prices = on["cpu"].price.numpy()
+    iv = {dev: black_scholes.implied_vol_surface(prices, 100.0, STRIKES,
+                                                 MATS, 0.03, call, device=dev)
+          for dev in (cuda, "cpu")}
+    np.testing.assert_allclose(iv[cuda].cpu().numpy(), iv["cpu"].numpy(),
+                               rtol=1e-10)
+    true = np.stack([_vec(TRUE), _vec(DEMO)])
+    host = {dev: price_truth_subprocess(true, [100.0, 100.0], STRIKES, MATS,
+                                        device=dev) for dev in (cuda, "cpu")}
+    np.testing.assert_allclose(host[cuda], host["cpu"], rtol=1e-11)

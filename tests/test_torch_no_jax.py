@@ -2,7 +2,10 @@
 
 A fresh interpreter imports every module of the port (the training
 modules included: ``surrogate/train.py``, ``utils/checkpoint.py``,
-``utils/logging_util.py``, ``tools/train_pipeline.py``), loads the shipped
+``utils/logging_util.py``, ``tools/train_pipeline.py``; and the
+benchmark's: ``tools/bench.py``, ``tools/error_ablation.py``,
+``utils/hostpricer.py``, ``models/greeks.py``, ``ops/black_scholes.py``,
+``ops/lbfgs.py``, each called once on the CPU), loads the shipped
 surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
 the JAX package through the port, trains a surrogate for one epoch on the
 CPU and round-trips it through the checkpoint functions, and must find
@@ -30,8 +33,25 @@ for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     if not mod.name.endswith("__main__"):
         __import__(mod.name)
 for name in ("surrogate.train", "utils.checkpoint", "utils.logging_util",
-             "tools.train_pipeline"):
+             "tools.train_pipeline", "ops.lbfgs", "ops.black_scholes",
+             "models.greeks", "utils.hostpricer", "tools.bench",
+             "tools.error_ablation"):
     assert port.__name__ + "." + name in sys.modules, name
+import torch
+from option_pricing_ffn_lbfgs_tpu_torch.tools import bench
+(args, prices), = bench.build_problems(1, device="cpu")
+assert prices.shape == (5, 15)
+params = port.DHParams(*(float(v) for v in bench.truths(0)[0]))
+g = port.greeks(params, 100.0, 0.03, bench.STRIKES, bench.MATS,
+                np.ones(15, bool), n_terms=16, device="cpu")
+assert bool(torch.isfinite(g.gamma).all())
+iv = port.implied_vol(prices[0], 100.0, bench.STRIKES, bench.MATS, 0.03,
+                      device="cpu")
+assert bool(torch.isfinite(iv).all())
+r = port.lbfgs_minimize(lambda x: ((x - 1.0) ** 2).sum(),
+                        torch.zeros(3, dtype=torch.float64),
+                        port.LBFGSConfig(flat=False))
+assert bool(r.converged)
 model = port.load_default_model()
 ds = port.load_dataset(sys.argv[1], device="cpu")
 assert ds.n_samples == 2 and model.model.head.out_features == 13
