@@ -61,12 +61,26 @@ Phases:
      five rows beside the JAX package's record, calibrate_batch_mixed with
      the winner-only LM polish and with the Wolfe polish (POLISH_LBFGS;
      trips and walls on two of the sets), the host pricer, the Greeks and
-     the implied vols on the card against the CPU.
+     the implied vols on the card against the CPU;
+ 16. the sharded calibration and the drivers: tools/graft_entry.py's
+     entry() against its plain version and its dry run in a fresh process
+     (one NCCL rank); calibrate_sharded on 512 Feller-capped surfaces x 3
+     starts at one NCCL rank and at two gloo ranks on the one card
+     (tools/dist_check.py subprocesses), against the unsharded
+     calibrate_batch in bits (or loss within 1e-6 with equal converged
+     flags), each summary against its host recomputation and the others
+     (rtol 1e-9), walls printed; the DDP step of the FFN at one and two
+     ranks, its gradients and running statistics against the plain
+     in-process step (1e-10), its parameters two ranks against one (1e-6);
+     tools/profile_search.py at B = 512, K = 16,
+     tools/bench_scaling.py at 1024 surfaces over 1 set, and
+     tools/bench_raw_draws.py beside the JAX package's record.
 
 Every phase prints its wall. Each main-path run (phases 6, 9, 12, 13, 14,
-15) is driven with the launch counts set to 0 just before it and read just
+15, 16) is driven with the launch counts set to 0 just before it and read just
 after; every kernel it should run must have launched. The per-kernel record's "launches" is the sum over
-those runs. Any failure exits non-zero. The last line is the JSON device
+those runs, with the launches of phase 16's sharded ranks read from their
+JSON lines. Any failure exits non-zero. The last line is the JSON device
 record; the line before it is the per-kernel JSON record.
 """
 import contextlib
@@ -1413,6 +1427,159 @@ def main():
           "greeks or implied vols not finite")
     check(g_rel <= 1e-10 and s_rel <= 1e-10 and iv_rel <= 1e-10,
           "greeks / implied vols on the card disagree with the CPU")
+    # --------------------------- 16 the sharded calibration and drivers --
+    lap(16)
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import (
+        bench_raw_draws, bench_scaling, dist_check, graft_entry,
+        profile_search)
+    # (a) entry(): K1<float> on one surface against its plain version; the
+    # dry run in a fresh process on a one-rank NCCL group.
+    fn, e_args = graft_entry.entry()
+    e_out = fn(*e_args)
+    e_ref = cos_kernel.price_surfaces_plain(
+        e_args[0][None], torch.full((1,), 100.0, dtype=f32, device=dev), 0.03,
+        e_args[1][None], e_args[2][None],
+        torch.ones((1, 15), dtype=torch.bool, device=dev))[0]
+    torch.cuda.synchronize()
+    e_rel = float(((e_out - e_ref).abs() / e_ref).max())
+    print(f"[16] entry(): {np.round(e_out.cpu().numpy(), 5).tolist()}, max "
+          f"rel to the plain float32 version {e_rel:.3e} (rtol 8e-5)")
+    check(e_out.shape == (15,) and bool(torch.isfinite(e_out).all())
+          and e_rel <= 8e-5, "entry() disagrees with its plain version")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "option_pricing_ffn_lbfgs_tpu_torch.tools."
+         "graft_entry"], capture_output=True, text=True, timeout=600,
+        cwd=here)
+    print(f"[16] tools/graft_entry.py (one rank, NCCL) in "
+          f"{time.perf_counter() - t0:.1f} s: {proc.stdout.strip()!r}")
+    check(proc.returncode == 0 and "dryrun_multichip ok" in proc.stdout,
+          f"dryrun_multichip(1) failed: {proc.stderr[-3000:]}")
+
+    # (b) calibrate_sharded at the main path's width (512 Feller-capped
+    # surfaces x 3 starts x 15 options, the default CalibrationConfig, the
+    # float32 search as JAX shards it): one rank on NCCL and two gloo ranks
+    # on the one card (tools/dist_check.py, each with a warm-up call, then
+    # a timed one with the counts zeroed just before it), and the unsharded
+    # calibrate_batch in this process. Each rank's launch counts are read
+    # from its JSON line and added to the record. (c) Both sharded runs end
+    # with one data-parallel Adam step of the FFN (float64, dropout off):
+    # their all-reduced gradients and BatchNorm running statistics are held
+    # to the plain step on the whole batch in this process (no group, no
+    # DDP) within 1e-10 (dist_check.ffn_grad_error), and their parameters
+    # after the step to each other within 1e-6.
+    prob = dist_check.build_problem("smoke512", dev)
+    sp, st, mt, ic, pr = prob.args
+    unsharded = lambda: port.calibrate_batch(
+        sp, 0.03, st, mt, ic, pr, torch.Generator().manual_seed(prob.seed),
+        prob.config, n_starts=prob.n_starts, dtype=prob.dtype)
+    torch.cuda.synchronize()           # phase 7 ran this search warm
+    t0 = time.perf_counter()
+    ref = drive(16, unsharded, ["cos_vg_loss", "cos_price_f32"])
+    ref_wall = time.perf_counter() - t0
+    ref_np = {f: getattr(ref, f).cpu().numpy()
+              for f in port.BatchCalibration._fields}
+    ref_host = dist_check.host_summary(ref, pr.to(prob.dtype).cpu().numpy())
+    print(f"[16] unsharded calibrate_batch 512 x 3 in-process: wall "
+          f"{ref_wall:.3f} s, K2 trips {path_launches_last['cos_vg_loss']}, "
+          f"summary (host) {ref_host}")
+    sharded_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, label in ((1, "1 rank, NCCL"), (2, "2 gloo ranks, one "
+                                                  "card")):
+            save = os.path.join(tmp, f"w{world}.npz")
+            t0 = time.perf_counter()
+            lines = dist_check.launch(world, "cuda", "smoke512", ddp=True,
+                                      save=save, timeout=900, cwd=here)
+            got = dict(np.load(save))
+            sharded_runs[world] = (lines, got)
+            summ = lines[0]["summary"]
+            print(f"[16] calibrate_sharded, {label}: backends "
+                  f"{[ln['backend'] for ln in lines]}, rank walls "
+                  f"{[round(ln['wall_s'], 3) for ln in lines]} s (the timed "
+                  f"call; {time.perf_counter() - t0:.1f} s with start-up), "
+                  f"summary {summ}, launches per rank "
+                  f"{[ln['launches'] for ln in lines]}")
+            check([ln["backend"] for ln in lines]
+                  == ["nccl" if world == 1 else "gloo"] * world,
+                  "sharded run on the wrong backend")
+            for ln in lines:
+                check(ln["launches"]["cos_vg_loss"] > 0
+                      and ln["launches"]["cos_price_f32"] > 0,
+                      f"rank {ln['rank']}: K2 or K1<float> did not launch "
+                      "in the sharded run")
+                for k, v in ln["launches"].items():
+                    path_launches[k] = path_launches.get(k, 0) + v
+                check(ln["winners_sha256"] == lines[0]["winners_sha256"],
+                      "ranks gathered different winners")
+            # the winners against the unsharded run: bits, or the stated
+            # bar with the op that moves them named in PERF.md
+            same = all(np.array_equal(got[f], ref_np[f])
+                       for f in port.BatchCalibration._fields)
+            loss_rel = float(np.max(np.abs(got["loss"] - ref_np["loss"])
+                                    / np.abs(ref_np["loss"])))
+            conv_same = bool(np.array_equal(got["converged"],
+                                            ref_np["converged"]))
+            print(f"[16]   winners vs unsharded: identical bits {same}; "
+                  f"largest loss rel diff {loss_rel:.3e}, converged flags "
+                  f"equal {conv_same}")
+            check(same or (loss_rel <= 1e-6 and conv_same),
+                  f"{label}: sharded winners differ from the unsharded ones")
+            # the summary against its host recomputation and the unsharded
+            # run's
+            host = lines[0]["host_summary"]
+            for key in ("mean_loss", "mean_rel_error"):
+                for other in (host, ref_host):
+                    check(abs(summ[key] - other[key])
+                          <= 1e-9 * abs(other[key]),
+                          f"{label}: summary {key} {summ[key]!r} vs "
+                          f"{other[key]!r}")
+            check(summ["n_total"] == 512 and summ["n_converged"]
+                  == host["n_converged"] == ref_host["n_converged"],
+                  f"{label}: summary counts disagree")
+    ffn_ref = dist_check.ffn_reference(dev)
+    grad_err = {w: dist_check.ffn_grad_error(sharded_runs[w][1], ffn_ref)
+                for w in (1, 2)}
+    ffn_diff = float(np.abs(sharded_runs[2][1]["ffn_params"]
+                            - sharded_runs[1][1]["ffn_params"]).max())
+    print(f"[16] DDP step: gradients and running statistics vs the plain "
+          f"in-process step, 1 NCCL rank {grad_err[1]:.3e}, 2 gloo ranks "
+          f"{grad_err[2]:.3e} (tol 1e-10); parameters after the step, 2 "
+          f"ranks vs 1, max abs diff {ffn_diff:.3e} (tol 1e-6)")
+    for w, err in grad_err.items():
+        check(err <= 1e-10, f"DDP step at {w} rank(s): gradients disagree "
+              "with the plain step")
+    check(ffn_diff <= 1e-6, "two-rank DDP step disagrees with one rank")
+    print(f"[16] sharded search mean error "
+          f"{100 * sharded_runs[1][0][0]['summary']['mean_rel_error']:.5f} % "
+          f"(the float32 search, no polish) beside phase 7's mixed "
+          f"{pooled[0].mean():.5f} % (first set; pooled "
+          f"{np.concatenate(pooled).mean():.5f} %); walls: unsharded "
+          f"{ref_wall:.3f} s, 1 rank {sharded_runs[1][0][0]['wall_s']:.3f} "
+          f"s, 2 ranks {max(ln['wall_s'] for ln in sharded_runs[2][0]):.3f} s")
+
+    # (d) the drivers: the search profile at B = 512, K = 16; the scaling
+    # sweep at 1024 surfaces over 1 set (its full default sweep, ~5 min,
+    # is run by itself for PERF.md); the raw draws beside the JAX
+    # package's record (accuracy only).
+    drive(16, lambda: profile_search.main(["--batches", "512", "--k", "16"]),
+          ["cos_vg_loss", "cos_price_f32"])
+    drive(16, lambda: bench_scaling.main(["--batches", "1024", "--sets",
+                                          "1"]), all4)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = drive(16, lambda: bench_raw_draws.main(
+            ["--n", "20", "--out", os.path.join(tmp, "raw.json")]), all4)
+    with open(os.path.join(here, "results", "raw_draws_bench.json")) as f:
+        raw_jax = json.load(f)["statistics"]
+    print(f"[16] raw draws (20 surfaces, 6 starts) {card}: mean "
+          f"{raw['statistics']['mean_error_pct']:.5f} %, Feller-ok "
+          f"{raw['statistics']['mean_error_pct_feller_ok']:.5f} %, violating "
+          f"{raw['statistics']['mean_error_pct_feller_violated']:.5f} % "
+          f"(JAX record: {raw_jax['mean_error_pct']:.5f} / "
+          f"{raw_jax['mean_error_pct_feller_ok']:.5f} / "
+          f"{raw_jax['mean_error_pct_feller_violated']:.5f} %)")
+    check(np.all(np.isfinite(raw["per_surface_error_pct"])),
+          "raw draws output malformed")
     lap(None)
     print(f"[walls] {json.dumps(walls)}")
 

@@ -27,6 +27,9 @@ Training a surrogate (``fit``, ``pretrain_and_finetune``; the whole
 two-stage pipeline is ``tools/train_pipeline.py``) runs on ``cuda`` too,
 as do the Greeks (``greeks``, ``param_sensitivities``) and the
 Black–Scholes functions. The benchmark is ``tools/bench.py``.
+``calibrate_sharded`` splits a batch over the ranks of a
+``torch.distributed`` mesh (``make_mesh``, ``distributed_init``); the
+JAX package's ``__graft_entry__.py`` is ``tools/graft_entry.py``.
 """
 from .models.double_heston import (
     DHParams, PARAM_NAMES, char_fn, payoff_coefficients, price_options,
@@ -44,6 +47,8 @@ from .models.greeks import Greeks, greeks, param_sensitivities
 from .ops.black_scholes import bs_price, bs_vega, implied_vol
 from .ops.lbfgs import lbfgs_minimize
 from .ops.lbfgs_batched import LBFGSResult, lbfgs_minimize_batched
+from .parallel.mesh import distributed_init, make_mesh
+from .parallel.sharded import calibrate_sharded
 from .utils.config import (
     CalibrationConfig, GeneratorConfig, LBFGSConfig, LMConfig, PricerConfig,
     SurfaceSpec)
@@ -78,6 +83,7 @@ __all__ = [
     "Greeks", "greeks", "param_sensitivities",
     "bs_price", "bs_vega", "implied_vol",
     "LBFGSResult", "lbfgs_minimize", "lbfgs_minimize_batched",
+    "make_mesh", "distributed_init", "calibrate_sharded",
     "CalibrationConfig", "GeneratorConfig", "LBFGSConfig", "LMConfig",
     "PricerConfig", "SurfaceSpec",
     "CalibrationResult", "write_benchmark_json",

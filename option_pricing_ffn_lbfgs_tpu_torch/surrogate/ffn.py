@@ -49,13 +49,39 @@ TRUNCATED_STD = 0.87962566103423978
 class BatchNorm1d(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` whose train-mode pass is Flax's ``nn.BatchNorm``
     (biased variance in the normalisation and in the running average);
-    eval mode is torch's."""
+    eval mode is torch's.
+
+    With a ``process_group`` (``use_process_group``) the train-mode
+    statistics are those of the global batch, split over the group's
+    ranks, as under the JAX package's data-parallel jit: the row count and
+    the sums of x and x*x are all-reduced by
+    ``torch.distributed.nn.functional.all_reduce``, through which the
+    gradient flows (via the host under gloo). Without one it is unchanged,
+    bit for bit."""
+
+    process_group = None
+
+    def _global_moments(self, x: torch.Tensor):
+        from torch.distributed.nn.functional import all_reduce
+        from ..parallel.mesh import for_backend
+        n = torch.full((1,), float(x.shape[0]), dtype=x.dtype,
+                       device=x.device)
+        stats = torch.cat([n, x.sum(0), (x * x).sum(0)])
+        stats = all_reduce(for_backend(self.process_group, stats),
+                           group=self.process_group).to(x.device)
+        c = x.shape[1]
+        mean = stats[1:1 + c] / stats[0]
+        return mean, stats[1 + c:] / stats[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(0)
-        var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+        if self.process_group is None:
+            mean = x.mean(0)
+            mean_sq = (x * x).mean(0)
+        else:
+            mean, mean_sq = self._global_moments(x)
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum     # Flax's momentum
             self.running_mean.copy_(keep * self.running_mean
@@ -65,6 +91,17 @@ class BatchNorm1d(nn.BatchNorm1d):
             self.num_batches_tracked.add_(1)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+
+
+def use_process_group(model: nn.Module, group) -> nn.Module:
+    """Give every ``BatchNorm1d`` of ``model`` the process group whose
+    global batch its train-mode statistics cover (None: the local batch).
+    Do not use ``convert_sync_batchnorm``: it replaces these modules, and
+    its train mode is not Flax's."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm1d):
+            m.process_group = group
+    return model
 
 
 def dropout(x: torch.Tensor, rate: float,

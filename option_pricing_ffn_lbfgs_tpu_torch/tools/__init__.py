@@ -1,4 +1,7 @@
 """Scripts run on the card: the benchmark (``bench``) and its error
-ablation (``error_ablation``), the measurement tool (``ab_parent``) and the
-surrogate's training pipeline (``train_pipeline``); nothing on a
-calibration path imports them."""
+ablation (``error_ablation``), the measurement tool (``ab_parent``), the
+surrogate's training pipeline (``train_pipeline``), the graft-entry twin
+(``graft_entry``) and the multi-process check it shares with the tests
+(``dist_check``), and the drivers ``bench_scaling``, ``profile_search``,
+``bench_raw_draws`` and ``make_results``; nothing on a calibration path
+imports them."""

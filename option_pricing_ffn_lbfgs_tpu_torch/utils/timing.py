@@ -1,4 +1,4 @@
-"""Device timing with CUDA events.
+"""Device timing with CUDA events, and the JAX package's timing protocol.
 
 PyTorch returns before the card has finished, so a host clock around
 unsynchronised work measures the enqueue. ``cuda_time_ms`` records CUDA
@@ -7,10 +7,23 @@ milliseconds per call; ``CudaTimer`` brackets arbitrary work the same way.
 Both need a CUDA device and raise without one. ``synchronize(device)``
 waits for a CUDA device and does nothing for the CPU, for host-clock
 timings that must include the device's work.
+
+``time_dispatches`` and ``time_jitted`` are the JAX package's chained
+protocol (``utils/timing.py``): back-to-back calls, one synchronize at the
+end, the total divided by the number of calls, the median of ``repeats``
+trials. On ``cuda`` the trials are timed with CUDA events; on the CPU
+(``device="cpu"``, for tests) by the host clock. The first call is timed
+apart as ``build_s``: it includes the kernels' nvcc build or the load of
+an already built library, where JAX's ``compile_s`` had the XLA compile.
+``profile_trace`` is a ``torch.profiler`` window and ``wall_timer`` a
+host-clock bracket.
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import os
+import time
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -55,3 +68,97 @@ def cuda_time_ms(fn: Callable, repeats: int = 20, warmup: int = 3) -> float:
         for _ in range(repeats):
             fn()
     return t.ms / repeats
+
+
+class Timing(NamedTuple):
+    build_s: float        # first call (build or load + run + synchronize)
+    steady_s: float       # per call, steady state (chained protocol)
+    runs: list            # per-trial chained estimates, sorted
+
+
+def _chain_s(calls: Sequence[Callable], device) -> float:
+    """Seconds per call of ``calls`` run back to back, one synchronize at
+    the end: CUDA events on a CUDA device, the host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        with CudaTimer() as t:
+            for call in calls:
+                call()
+        return t.ms / 1e3 / len(calls)
+    t0 = time.perf_counter()
+    for call in calls:
+        call()
+    return (time.perf_counter() - t0) / len(calls)
+
+
+def _first_call_s(call: Callable, device) -> float:
+    synchronize(device)
+    t0 = time.perf_counter()
+    call()
+    synchronize(device)
+    return time.perf_counter() - t0
+
+
+def time_dispatches(fn: Callable, inputs: Sequence, repeats: int = 3,
+                    device="cuda") -> Timing:
+    """Chained-protocol timing over a list of fresh input tuples:
+    ``fn(*inputs[i])`` for every i back to back, one synchronize at the
+    end; per call = total / len(inputs). ``inputs[0]`` also times the
+    first call. Fresh inputs exercise input-dependent convergence."""
+    calls = [lambda inp=inp: fn(*inp) for inp in inputs]
+    build_s = _first_call_s(calls[0], device)
+    runs = sorted(_chain_s(calls, device) for _ in range(repeats))
+    return Timing(build_s=build_s, steady_s=runs[len(runs) // 2], runs=runs)
+
+
+def time_jitted(fn: Callable, *args, repeats: int = 3, chain: int = 4,
+                device="cuda", **kwargs) -> Timing:
+    """``fn(*args, **kwargs)`` timed by the chained protocol: the first
+    call (the build or load) apart, then ``chain`` identical calls per
+    trial, the median of ``repeats`` trials."""
+    call = lambda: fn(*args, **kwargs)
+    build_s = _first_call_s(call, device)
+    runs = sorted(_chain_s([call] * chain, device) for _ in range(repeats))
+    return Timing(build_s=build_s, steady_s=runs[len(runs) // 2], runs=runs)
+
+
+def device_busy_ms(prof) -> float:
+    """Milliseconds of device work (kernels, copies) in a finished
+    ``torch.profiler.profile``: the sum of its device-side entries' own
+    time."""
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    return sum(dev_us(e) for e in prof.key_averages()
+               if dev_us(e) > 0 and "CUDA" in str(e.device_type)) / 1e3
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str] = None, device="cuda"):
+    """A ``torch.profiler`` window over the host and, on ``cuda``, the
+    card; yields the profiler (read ``key_averages()`` or
+    ``device_busy_ms`` after the block). With ``log_dir`` the Chrome trace
+    is written to ``log_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+        synchronize(device)
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def wall_timer():
+    """Host wall-clock bracket; read ``.elapsed_s`` after the block. The
+    JAX package's ``wall_timer``, kept as its twin; nothing in the port
+    calls it."""
+    class _T:
+        elapsed_s = 0.0
+    t = _T()
+    t0 = time.perf_counter()
+    try:
+        yield t
+    finally:
+        t.elapsed_s = time.perf_counter() - t0

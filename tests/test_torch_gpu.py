@@ -654,3 +654,25 @@ def test_greeks_card_vs_cpu(cuda):
     host = {dev: price_truth_subprocess(true, [100.0, 100.0], STRIKES, MATS,
                                         device=dev) for dev in (cuda, "cpu")}
     np.testing.assert_allclose(host[cuda], host["cpu"], rtol=1e-11)
+
+
+def test_calibrate_sharded_one_rank_nccl_matches_unsharded(cuda, tmp_path):
+    """calibrate_sharded on a one-rank NCCL group (tools/dist_check.py in a
+    subprocess) equals calibrate_batch in this process, bit for bit, on 64
+    Feller-capped surfaces x 3 starts (the float32 search)."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import dist_check
+    save = str(tmp_path / "one.npz")
+    (line,) = dist_check.launch(1, "cuda", "smoke64", save=save)
+    assert line["backend"] == "nccl" and line["summary"]["n_total"] == 64
+    assert line["launches"]["cos_vg_loss"] > 0
+    assert line["launches"]["cos_price_f32"] > 0
+    prob = dist_check.build_problem("smoke64", cuda)
+    spots, strikes, mats, is_call, prices = prob.args
+    ref = calibrator.calibrate_batch(
+        spots, dist_check.RATE, strikes, mats, is_call, prices,
+        torch.Generator().manual_seed(prob.seed), prob.config,
+        n_starts=prob.n_starts, dtype=prob.dtype)
+    got = np.load(save)
+    for f in calibrator.BatchCalibration._fields:
+        want = getattr(ref, f).cpu().numpy()
+        assert got[f].dtype == want.dtype and np.array_equal(got[f], want), f

@@ -5,7 +5,12 @@ modules included: ``surrogate/train.py``, ``utils/checkpoint.py``,
 ``utils/logging_util.py``, ``tools/train_pipeline.py``; and the
 benchmark's: ``tools/bench.py``, ``tools/error_ablation.py``,
 ``utils/hostpricer.py``, ``models/greeks.py``, ``ops/black_scholes.py``,
-``ops/lbfgs.py``, each called once on the CPU), loads the shipped
+``ops/lbfgs.py``, each called once on the CPU; the sharded calibration's
+``parallel/mesh.py`` and ``parallel/sharded.py``, ``calibrate_sharded``
+called once on a one-rank CPU group; ``tools/graft_entry.py``,
+``tools/dist_check.py`` and the four drivers ``tools/bench_scaling.py``,
+``tools/profile_search.py``, ``tools/bench_raw_draws.py`` and
+``tools/make_results.py``), loads the shipped
 surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
 the JAX package through the port, trains a surrogate for one epoch on the
 CPU and round-trips it through the checkpoint functions, and must find
@@ -35,7 +40,10 @@ for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
 for name in ("surrogate.train", "utils.checkpoint", "utils.logging_util",
              "tools.train_pipeline", "ops.lbfgs", "ops.black_scholes",
              "models.greeks", "utils.hostpricer", "tools.bench",
-             "tools.error_ablation"):
+             "tools.error_ablation", "parallel.mesh", "parallel.sharded",
+             "tools.graft_entry", "tools.dist_check", "tools.bench_scaling",
+             "tools.profile_search", "tools.bench_raw_draws",
+             "tools.make_results"):
     assert port.__name__ + "." + name in sys.modules, name
 import torch
 from option_pricing_ffn_lbfgs_tpu_torch.tools import bench
@@ -61,6 +69,13 @@ s, hist = port.fit(rng.normal(size=(32, 11)), rng.normal(size=(32, 13)),
 with tempfile.TemporaryDirectory() as d:
     port.save_surrogate_state(d, s)
     assert port.load_surrogate_state(d).model.head.out_features == 13
+mesh = port.make_mesh(1, device_type="cpu")
+out, summary = port.calibrate_sharded(
+    mesh, args[0][:2], 0.03, args[1][:2], args[2][:2], args[3][:2],
+    args[4][:2], config=port.CalibrationConfig(
+        pricer=port.PricerConfig(n_terms=16),
+        lbfgs=port.LBFGSConfig(maxiter=2)), n_starts=1)
+assert out.loss.shape == (2,) and int(summary.n_total) == 2
 assert "torch" in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
