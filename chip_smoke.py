@@ -20,6 +20,14 @@ Phases:
      band one lane past the outputs, and two launches' bits;
   5. K3: residual Jacobian vs jacfwd of the plain residuals; K2 and K3 also
      at L = 12 / q = 0.02 (together, q alone, L alone);
+ 5b. K4/K5, the L-BFGS trip (csrc/lbfgs_trip.cu): one trip from seeded
+     random states (tools/trip_check.py: lanes 1, 15, 1536, 1537; float
+     and double; every stage, hist_len 0..10, wrapped heads, bootstrap and
+     done lanes, non-finite evaluations) against the plain pair on the
+     card; the whole engine at float64 on K2<double> (1536 lanes,
+     maxeval = 30) kernels against the plain pair; a corrupt history
+     index raises naming its lane; each kernel timed against the plain
+     version and its bound (ops/opcount.py);
   6. the slice, bench twin: tools/bench.py's 6 problem sets x 5 surfaces
      (bench.py's recipe, truths from the in-process host pricer), each
      calibrated once by calibrate_batch_mixed with 3 starts (the launch
@@ -78,9 +86,12 @@ Phases:
 
 Every phase prints its wall. Each main-path run (phases 6, 9, 12, 13, 14,
 15, 16) is driven with the launch counts set to 0 just before it and read just
-after; every kernel it should run must have launched. The per-kernel record's "launches" is the sum over
-those runs, with the launches of phase 16's sharded ranks read from their
-JSON lines. Any failure exits non-zero. The last line is the JSON device
+after; every kernel it should run must have launched, and K4 and K5 must
+have launched as often as K2 at each precision (every L-BFGS trip is K4,
+K2, K5; tools/profile_search.py, which times K2 and K4 alone, excepted).
+Phase 2 fails on ptxas spill stores of K1, K4 or K5. The per-kernel
+record's "launches" is the sum over those runs, with the launches of phase
+16's sharded ranks read from their JSON lines. Any failure exits non-zero. The last line is the JSON device
 record; the line before it is the per-kernel JSON record.
 """
 import contextlib
@@ -124,7 +135,7 @@ def main():
     from option_pricing_ffn_lbfgs_tpu_torch.models.double_heston import (
         PARAM_NAMES, DHParams)
     from option_pricing_ffn_lbfgs_tpu_torch.ops import (
-        cos_kernel, kernel_build, loss_kernel, opcount)
+        cos_kernel, kernel_build, lbfgs_batched, loss_kernel, opcount)
     from option_pricing_ffn_lbfgs_tpu_torch.ops.black_scholes import (
         implied_vol_surface)
     from option_pricing_ffn_lbfgs_tpu_torch.data.synthetic import (
@@ -147,19 +158,27 @@ def main():
     path_launches = {}   # kernel name -> launches summed over main paths
     path_launches_last = {}   # the counts of the most recent main path
 
-    def drive(label, fn, expect):
+    all_counts = (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES,
+                  lbfgs_batched.LAUNCHES)
+
+    def drive(label, fn, expect, trips=True):
         """Run one main path with the launch counts zeroed just before and
-        read just after; every kernel in ``expect`` must have launched."""
-        for counts in (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES):
+        read just after; every kernel in ``expect`` must have launched, and
+        (``trips``) K4 and K5 as often as K2 at each precision."""
+        for counts in all_counts:
             for k in counts:
                 counts[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        got = {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES}
+        got = {k: v for counts in all_counts for k, v in counts.items()}
         print(f"[{label}] launches: {got}")
         missing = [k for k in expect if got[k] == 0]
         check(not missing, f"{label}: kernels {missing} of the path did "
               "not launch")
+        for sfx in ("", "_f64"):
+            check(not trips or got["lbfgs_open" + sfx]
+                  == got["lbfgs_update" + sfx] == got["cos_vg_loss" + sfx],
+                  f"{label}: K4/K5{sfx} launches differ from K2{sfx}'s")
         for k, v in got.items():
             path_launches[k] = path_launches.get(k, 0) + v
         path_launches_last.clear()
@@ -195,10 +214,10 @@ def main():
 
     # ----------------------------------------------------------- 2 build --
     lap(2)
-    build_s = kernel_build.build("cos_price", "cos_vg")
+    build_s = kernel_build.build("cos_price", "cos_vg", "lbfgs_trip")
     print(f"[2] build: {build_s:.1f} s (nvcc {' '.join(kernel_build.NVCC_FLAGS)})")
-    k1_spills = []
-    for name in ("cos_price", "cos_vg"):
+    k1_spills, trip_spills = [], []
+    for name in ("cos_price", "cos_vg", "lbfgs_trip"):
         log = kernel_build.BUILD / f"{name}.log"
         if log.exists():
             entry = ""
@@ -207,14 +226,25 @@ def main():
                 if m:
                     entry = ("<double>" if "IdE" in m.group(1) else
                              "<float>" if "IfE" in m.group(1) else "")
+                    t = re.search(r"(lbfgs_\w+?_kernel)I([fd])Li(\d)E",
+                                  m.group(1))
+                    if t:
+                        kind = "float" if t.group(2) == "f" else "double"
+                        entry = f" {t.group(1)}<{kind}, K={t.group(3)}>"
                 if "registers" in line or "spill" in line:
                     print(f"[2] {name}{entry}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m and name == "cos_price":
                     k1_spills.append(int(m.group(1)))
-    print(f"[2] cos_price spill stores per entry: {k1_spills} B")
+                if m and name == "lbfgs_trip":
+                    trip_spills.append(int(m.group(1)))
+    print(f"[2] cos_price spill stores per entry: {k1_spills} B; "
+          f"lbfgs_trip (K4/K5 x float/double x 1, 2, 4 coordinates a "
+          f"thread): {trip_spills} B")
     check(k1_spills and not any(k1_spills),
           "K1 spills registers (ptxas reports spill stores)")
+    check(trip_spills and not any(trip_spills),
+          "K4/K5 spill registers (ptxas reports spill stores)")
 
     # -------------------------------------------------------------- 3 K1 --
     lap(3)
@@ -687,6 +717,144 @@ def main():
     record["cos_vg_loss"] = {"max_abs_err": k2_err}
     record["cos_vg_jac"] = {"max_abs_err": k3_err}
 
+    def kernel_vs_plain(label, name, kern, plain, work, dt, keep):
+        """plain, kernel, kernel, plain: compare within one call; the bound
+        is the least time for ``work`` (ops/opcount.py). ``keep`` records
+        the best of each, at the main path's width, in the JSON record."""
+        p_a = cuda_time_ms(plain)
+        k_a = cuda_time_ms(kern)
+        k_b = cuda_time_ms(kern)
+        p_b = cuda_time_ms(plain)
+        ms, plain_ms = min(k_a, k_b), min(p_a, p_b)
+        bound, by = opcount.bound_ms(work, dt)
+        print(f"{label} kernel {ms:.4f} ms ({k_a:.4f}, {k_b:.4f}), plain "
+              f"{plain_ms:.4f} ms ({p_a:.4f}, {p_b:.4f}), bound "
+              f"{bound:.5f} ms by {by} ({work['ops']:.4g} ops, "
+              f"{work['bytes']:.4g} B)")
+        if keep:
+            record[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, library_ms=None,
+                                shape=label.split("]", 1)[1].split(":")[0]
+                                .strip())
+
+    # ------------------------------------------------- 5b K4/K5, the trip --
+    lap("5b")
+    from torch.profiler import ProfilerActivity, profile
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.config import LBFGSConfig
+    lb = lbfgs_batched
+    trip_err = {}
+    for key in lb.LAUNCHES:
+        record[key] = {}
+    for n_lanes in (1, 15, 1536, 1537):
+        for dt in (f32, f64):
+            rep = trip_check.check_trip(n_lanes, dt, dev, 7 + n_lanes)
+            sfx = "" if dt == f32 else "_f64"
+            for kind, part in (("open", rep["open"]), ("update",
+                                                        rep["update"])):
+                key = f"lbfgs_{kind}{sfx}"
+                trip_err[key] = max(trip_err.get(key, 0.0),
+                                    part["max_abs_err"])
+                bad = {k: v for k, v in part["discrete"].items() if v}
+                bad.update({k: v for k, v in part["nonfinite"].items() if v})
+                worst = max(part["continuous"], key=part["continuous"].get)
+                print(f"[5b] K{4 if kind == 'open' else 5} {key} L={n_lanes}: "
+                      f"discrete/non-finite mismatches {bad or 'none'}; worst "
+                      f"continuous field {worst} "
+                      f"{part['continuous'][worst]:.3e} of its max (tol "
+                      f"{rep['tol']})")
+            print(f"[5b]   done lanes changed {rep['done_lanes_changed']}, "
+                  f"live (kernel, plain) {rep['live']}"
+                  + (f"; branches {json.dumps(rep['coverage'])}"
+                     if n_lanes == 1536 else ""))
+            check(rep["ok"], f"K4/K5 disagree with the plain pair at "
+                  f"L={n_lanes} {dt}")
+    # The whole engine at float64 on K2<double>: kernels against the plain
+    # pair on the card, 512 surfaces x 3 starts, N = 128, maxeval = 30.
+    prob = [t.to(f64) if t.dtype != torch.bool else t
+            for t in lanes_problem(1536, 77)]
+    vg64 = loss_kernel.make_batch_value_and_grad(*prob[:5], 0.03,
+                                                 CalibrationConfig())
+    eng = trip_check.check_engine(vg64, prob[5], LBFGSConfig(maxeval=30))
+    print(f"[5b] engine float64 on K2<double>, 1536 lanes, maxeval=30, "
+          f"kernels vs plain pair: {json.dumps(eng)} (x rtol 1e-7)")
+    check(eng["n_evals_equal"] and eng["n_iters_equal"]
+          and eng["x_rel"] <= 1e-7, "the engine on K4/K5 departs from the "
+          "plain pair")
+    # A corrupt circular index raises, naming its lane.
+    st, f_try, g_try = trip_check.random_state(16, f64, dev, 4)
+    st.done[:] = False
+    st.head[5] = 10
+    status = torch.zeros(2, dtype=torch.int32, device=dev)
+    lb.lbfgs_update(st, lb.lbfgs_open(st, trip_check.TRIP_CONFIG, status),
+                    f_try, g_try, trip_check.TRIP_CONFIG, status)
+    try:
+        lb.read_live(status)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    print(f"[5b] head = m on lane 5: {raised!r}")
+    check("lane 5" in raised, "a corrupt history index did not raise")
+    # Each kernel against its plain version and its bound. K4: every lane
+    # opening on a full 10-pair history (each launch rewrites the same
+    # opening fields). K5: every lane live, finite evaluations, under a
+    # configuration whose stops never fire, so the work stays the same
+    # from launch to launch; its bytes are those of the first launch.
+    never = LBFGSConfig(maxiter=1 << 30, ftol=-float("inf"), gtol=-1.0,
+                        max_restarts=1 << 30)
+
+    def alone_ms(kind, fn):
+        """The kernel alone: torch.profiler's device time over 20
+        launches (the events time the wrappers' host issue when that is
+        slower than the kernel)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        return sum(dev_us(e) for e in prof.key_averages()
+                   if f"lbfgs_{kind}_kernel" in e.key
+                   and "CUDA" in str(e.device_type)) / 20 / 1e3
+
+    for n_lanes, dt, keep in ((1536, f32, True), (15, f64, True),
+                              (1536, f64, False), (15, f32, False)):
+        st, f_try, g_try = trip_check.random_state(n_lanes, dt, dev, 21)
+        f_try = torch.where(torch.isfinite(f_try), f_try, st.f)
+        st.done[:] = False
+        st.starting[:] = True
+        st.hist_len[:] = 10
+        sfx = "" if dt == f32 else "_f64"
+        status = torch.zeros(2, dtype=torch.int32, device=dev)
+        k4 = lambda: lb.lbfgs_open(st, never, status)
+        kernel_vs_plain(
+            f"[5b] lbfgs_open{sfx} L={n_lanes} (all opening, hist_len 10):",
+            "lbfgs_open" + sfx, k4, lambda: lb.lbfgs_open_plain(st, never),
+            opcount.lbfgs_open_work(st), dt, keep)
+        alone = {"open": alone_ms("open", k4)}
+        st.starting[:] = torch.arange(n_lanes, device=dev) % 3 == 0
+        st_p, x_try = lb.lbfgs_open_plain(st, never)
+        st5 = trip_check.clone_state(st_p)
+        before = trip_check.clone_state(st5)
+        k5 = lambda: lb.lbfgs_update(st5, x_try, f_try, g_try, never, status)
+        k5()
+        kernel_vs_plain(
+            f"[5b] lbfgs_update{sfx} L={n_lanes} (all live):",
+            "lbfgs_update" + sfx, k5,
+            lambda: lb.lbfgs_update_plain(st_p, x_try, f_try, g_try, never),
+            opcount.lbfgs_update_work(before, st5), dt, keep)
+        alone["update"] = alone_ms("update", k5)
+        check(not bool(st5.done.any()), "K5 timing state: a lane finished")
+        print(f"[5b]   kernels alone (torch.profiler, 20 launches) L={n_lanes} "
+              f"{dt}: K4 {alone['open']:.5f} ms, K5 {alone['update']:.5f} ms")
+        if keep:
+            for kind, ms in alone.items():
+                record["lbfgs_" + kind + sfx]["kernel_alone_ms"] = ms
+    for key, err in trip_err.items():
+        record[key]["max_abs_err"] = err
+
     # ------------------------------------------------- 6 slice, bench twin --
     lap(6)
     slice_cfg = CalibrationConfig(search_impl="pallas", polish_impl="pallas",
@@ -736,9 +904,14 @@ def main():
                  all4)
     errs = np.concatenate([tbench.errors_pct(o, truth)
                            for o, (_, truth) in zip(outs, sets6)])
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "results", "error_ablation.json")) as f:
+        jax_default = json.load(f)["configs"]["default"]
     print(f"[6] bench twin 6 x 5 surfaces (tools/bench.py's sets and "
           f"calibrate, mixed): mean err {errs.mean():.5f} %, max "
-          f"{errs.max():.5f} %")
+          f"{errs.max():.5f} % (JAX record: mean "
+          f"{jax_default['mean_error_pct']:.5f} %, max "
+          f"{jax_default['max_error_pct']:.5f} %)")
     print(f"[6] per-surface error %: {np.round(errs, 5).tolist()}")
     check(errs.shape == (30,) and np.all(np.isfinite(errs)),
           "bench twin output malformed")
@@ -749,8 +922,7 @@ def main():
     proc = subprocess.run(
         [sys.executable, "-m",
          "option_pricing_ffn_lbfgs_tpu_torch.tools.bench"],
-        capture_output=True, text=True, timeout=900,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+        capture_output=True, text=True, timeout=900, cwd=here)
     lines = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and len(lines) == 1,
           f"tools/bench.py main() failed: {proc.stderr[-2000:]}")
@@ -824,12 +996,9 @@ def main():
     # torch.profiler over one more compacted call: the device's busy time
     # (the sum of its kernels' time) and the K2 + K3 share of the
     # unprofiled wall just measured.
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, prof_ms = timed(slice_cfg)
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     # device-side entries only (kernels, copies): a CPU op such as
     # aten::index also carries the time of the kernel it launched
     on_dev = [e for e in prof.key_averages()
@@ -859,26 +1028,6 @@ def main():
 
     # ------------------------------------------ 8 kernel vs plain timing --
     lap(8)
-    def kernel_vs_plain(label, name, kern, plain, work, dt, keep):
-        """plain, kernel, kernel, plain: compare within one call; the bound
-        is the least time for ``work`` (ops/opcount.py). ``keep`` records
-        the best of each, at the main path's width, in the JSON record."""
-        p_a = cuda_time_ms(plain)
-        k_a = cuda_time_ms(kern)
-        k_b = cuda_time_ms(kern)
-        p_b = cuda_time_ms(plain)
-        ms, plain_ms = min(k_a, k_b), min(p_a, p_b)
-        bound, by = opcount.bound_ms(work, dt)
-        print(f"{label} kernel {ms:.4f} ms ({k_a:.4f}, {k_b:.4f}), plain "
-              f"{plain_ms:.4f} ms ({p_a:.4f}, {p_b:.4f}), bound "
-              f"{bound:.5f} ms by {by} ({work['ops']:.4g} ops, "
-              f"{work['bytes']:.4g} B)")
-        if keep:
-            record[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=by, library_ms=None,
-                                shape=label.split("]", 1)[1].split(":")[0]
-                                .strip())
-
     # (lanes, N, kernels timed, kernels whose main-path width this is):
     # the search and the polish run 1536 lanes at N = 64 (512 x 3), the
     # winner's repricing 512 surfaces, the hybrid's polish 512 lanes (its
@@ -1112,6 +1261,12 @@ def main():
           f"({t_ref.ms / max(trips, 1):.3f} ms/trip), float64 polish and the "
           f"rest {hyb_ms - fwd - t_ref.ms:.2f} ms; LM trips in the run "
           f"{path_launches_last['cos_vg_jac']}")
+    # The two-loop's gather once raised a device-side assert in ~250
+    # hybrid calls; K4/K5 check the circular indices and a corrupt one
+    # raises (the error word), which would have failed this phase.
+    print(f"[12] K4/K5 error word: not set over this phase's three hybrid "
+          f"and refine runs ({path_launches_last['lbfgs_open']} K4 launches "
+          f"in the timed call)")
 
     # -------------------------------------------------- 13 entry points --
     lap(13)
@@ -1331,7 +1486,6 @@ def main():
           "bench float64 output malformed")
 
     # The error ablation's five rows beside the JAX package's record.
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "ablation.json")
         drive(15, lambda: error_ablation.main(["--out", out_path]), all4)
@@ -1563,7 +1717,8 @@ def main():
     # is run by itself for PERF.md); the raw draws beside the JAX
     # package's record (accuracy only).
     drive(16, lambda: profile_search.main(["--batches", "512", "--k", "16"]),
-          ["cos_vg_loss", "cos_price_f32"])
+          ["cos_vg_loss", "cos_price_f32", "lbfgs_open", "lbfgs_update"],
+          trips=False)
     drive(16, lambda: bench_scaling.main(["--batches", "1024", "--sets",
                                           "1"]), all4)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1595,10 +1750,21 @@ def main():
         # (calibration/loss.py::make_loss_fn); K2's kernel is the TPU one.
         "cos_vg_loss_f64":
             "option_pricing_ffn_lbfgs_tpu/ops/loss_pallas.py:112",
+        # No Pallas twin: the body of JAX's lax.while_loop and the two-loop's
+        # fori_loops, which XLA compiled into one device program.
+        "lbfgs_open": "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:80",
+        "lbfgs_open_f64":
+            "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:80",
+        "lbfgs_update":
+            "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:194",
+        "lbfgs_update_f64":
+            "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:194",
     }
+    sources = {"cos_price": "cos_price.cu", "cos_vg": "cos_vg.cu",
+               "lbfgs": "lbfgs_trip.cu"}
     kernels = [{"name": name, "route": "cuda",
-                "source": src + ("cos_price.cu" if "price" in name
-                                 else "cos_vg.cu"),
+                "source": src + next(f for k, f in sources.items()
+                                     if name.startswith(k)),
                 "replaces": replaces[name], **fields}
                for name, fields in record.items()]
     need = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -6,9 +6,12 @@ Each ``csrc/<name>.cu`` compiles, at first use, into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-and is loaded with ``ctypes``. No PyTorch header is included, so a build
-takes seconds rather than minutes, and no ``--use_fast_math``: the float64
-kernels need the accurate exp/log/sin/cos/atan2. A library is rebuilt when
+plus a file's own flags from ``FILE_FLAGS`` (``lbfgs_trip.cu``, the
+L-BFGS trip, is built with ``-fmad=false`` so that its decisions round as
+eager PyTorch's ``a * b + c`` does), and is loaded with ``ctypes``. No
+PyTorch header is included, so a build takes seconds rather than minutes,
+and no ``--use_fast_math``: the float64 kernels need the accurate
+exp/log/sin/cos/atan2. A library is rebuilt when
 any file in ``csrc/`` is newer than it. ptxas' register/spill report of the
 last build of ``<name>`` is kept in ``_build/<name>.log``.
 
@@ -28,6 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+FILE_FLAGS = {"lbfgs_trip": ["-fmad=false"]}
 
 _LIBS = {}
 _ENTRIES = {}
@@ -57,7 +61,8 @@ def _stale(name: str) -> bool:
 def _start(name: str):
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = BUILD / f"lib{name}.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *FILE_FLAGS.get(name, ()), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp

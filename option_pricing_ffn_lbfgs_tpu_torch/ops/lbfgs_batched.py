@@ -9,16 +9,47 @@ batch-level call ``vg_fn(x: [L, d]) -> (f: [L], g: [L, d])`` per loop trip
 Per trip each lane advances its strong-Wolfe bracket/zoom line search by
 exactly one evaluation (curvature-safe circular (s, y) history,
 restart-on-failure, ftol/gtol/maxiter/maxeval stops); lanes that are done
-hold their state. The loop runs while any lane is not done, which reads
-one flag from the device per trip.
+hold their state. A trip is split at its one evaluation::
+
+    x_try = lbfgs_open(st)                  # K4
+    f_try, g_try = vg_fn(x_try)             # K2 on the calibration path
+    lbfgs_update(st, x_try, f_try, g_try)   # K5
+
+  * K4, ``lbfgs_open``: for the lanes that open an iteration, the two-loop
+    direction, the bad-direction fallback, the initial step and the
+    line search's opening resets; for every lane the trial point ``x_try``;
+  * K5, ``lbfgs_update``: ``safe_vg``'s treatment of non-finite values,
+    one bracket or zoom step, the best point so far, the curvature-safe
+    history write, the convergence, restart and give-up tests, commit and
+    bootstrap; lanes that were done hold. It counts the lanes not done.
+
+On CUDA tensors the wrappers launch the hand-written kernels of
+``csrc/lbfgs_trip.cu``, which update the state tensors in place; K4
+zeroes a device ``int32`` live count that K5 adds to, and the loop reads
+that count with an error word in one host read per trip (the one
+synchronisation of a trip, where the JAX package evaluates its
+``while_loop`` condition on the device). On CPU tensors the wrappers run
+the plain versions ``lbfgs_open_plain`` / ``lbfgs_update_plain``, which
+build new state tensors, and copy the result into the state. There is no
+other path: a CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..utils.config import LBFGSConfig
+from . import kernel_build
+
+# Launches of each kernel, counted where it is launched.
+LAUNCHES = {"lbfgs_open": 0, "lbfgs_update": 0, "lbfgs_open_f64": 0,
+            "lbfgs_update_f64": 0}
+# The kernels keep a lane's coordinates in registers, 16 threads a lane
+# and up to 4 coordinates a thread; the history's alphas in shared memory.
+MAX_DIM = 64
+MAX_HISTORY = 512
 
 
 class LBFGSResult(NamedTuple):
@@ -64,12 +95,48 @@ class _BState(NamedTuple):
     ok: torch.Tensor
 
 
+# Each field's trailing shape ("d": [L, d]; "md": [L, m, d]; "m": [L, m];
+# "": [L]) and kind ("t": the working dtype, "i": int32, "b": bool), in
+# the order csrc/lbfgs_trip.cu's State<T> takes the pointers.
+_LAYOUT = {
+    "x": ("d", "t"), "f": ("", "t"), "g": ("d", "t"), "s_hist": ("md", "t"),
+    "y_hist": ("md", "t"), "rho_hist": ("m", "t"), "hist_len": ("", "i"),
+    "head": ("", "i"), "gamma": ("", "t"), "n_iters": ("", "i"),
+    "n_evals": ("", "i"), "n_fail": ("", "i"), "done": ("", "b"),
+    "converged": ("", "b"), "bootstrap": ("", "b"), "starting": ("", "b"),
+    "direction": ("d", "t"), "dg0": ("", "t"), "stage": ("", "i"),
+    "alpha": ("", "t"), "a_lo": ("", "t"), "a_hi": ("", "t"),
+    "f_lo": ("", "t"), "a_prev": ("", "t"), "f_prev": ("", "t"),
+    "ls_evals": ("", "i"), "a_star": ("", "t"), "f_star": ("", "t"),
+    "g_star": ("d", "t"), "x_star": ("d", "t"), "ok": ("", "b"),
+}
+assert tuple(_LAYOUT) == _BState._fields
+
+
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
 def _col(v):
     return v[:, None]
+
+
+def init_state(x0: torch.Tensor, history: int) -> _BState:
+    """The engine's state before its first (bootstrap) trip; every field
+    is a tensor of its own, so the kernels may update them in place."""
+    dt, dev = x0.dtype, x0.device
+    L, d = x0.shape
+    shapes = {"d": (L, d), "md": (L, history, d), "m": (L, history), "": (L,)}
+    types = {"t": dt, "i": torch.int32, "b": torch.bool}
+    fill = {"f": float("inf"), "f_lo": float("inf"),
+            "f_prev": float("inf"), "f_star": float("inf"), "gamma": 1.0,
+            "bootstrap": True}
+    st = {name: torch.full(shapes[shape], fill.get(name, 0),
+                           dtype=types[kind], device=dev)
+          for name, (shape, kind) in _LAYOUT.items()}
+    st["x"] = x0.clone()
+    st["x_star"] = x0.clone()
+    return _BState(**st)
 
 
 def _two_loop_direction(g, s_hist, y_hist, rho_hist, hist_len, head, gamma):
@@ -95,206 +162,402 @@ def _two_loop_direction(g, s_hist, y_hist, rho_hist, hist_len, head, gamma):
     return -r
 
 
+def lbfgs_open_plain(st: _BState, config: LBFGSConfig):
+    """Plain K4: ``(state, x_try)``. Lanes that are starting and not done
+    open an iteration (direction, initial step, line-search resets); done
+    lanes keep every field. ``x_try`` is ``x`` for bootstrap and done
+    lanes, else ``x + alpha * direction``. Builds new tensors."""
+    where = torch.where
+    direction = _two_loop_direction(st.g, st.s_hist, st.y_hist, st.rho_hist,
+                                    st.hist_len, st.head, st.gamma)
+    dgn = _dot(direction, st.g)
+    bad_dir = (dgn >= 0) | ~torch.isfinite(dgn)
+    direction = where(_col(bad_dir), -st.g, direction)
+    gmax = torch.amax(torch.abs(st.g), dim=-1)
+    zeros = torch.zeros_like(st.f)
+    init_step = where(st.hist_len == 0,
+                      torch.clamp(1.0 / torch.clamp(gmax, min=1e-8), max=1.0),
+                      torch.ones_like(st.f))
+
+    opening = st.starting & ~st.done
+    direction = where(_col(opening), direction, st.direction)
+    alpha = where(opening, init_step, st.alpha)
+    i0 = torch.zeros_like(st.stage)
+    st = st._replace(
+        direction=direction,
+        dg0=where(opening, _dot(direction, st.g), st.dg0),
+        alpha=alpha,
+        stage=where(opening, i0, st.stage),
+        a_lo=where(opening, zeros, st.a_lo),
+        a_hi=where(opening, zeros, st.a_hi),
+        f_lo=where(opening, st.f, st.f_lo),
+        a_prev=where(opening, zeros, st.a_prev),
+        f_prev=where(opening, st.f, st.f_prev),
+        ls_evals=where(opening, i0, st.ls_evals),
+        a_star=where(opening, zeros, st.a_star),
+        f_star=where(opening, st.f, st.f_star),
+        g_star=where(_col(opening), st.g, st.g_star),
+        x_star=where(_col(opening), st.x, st.x_star),
+        ok=st.ok & ~opening)
+    x_try = where(_col(st.bootstrap | st.done), st.x,
+                  st.x + _col(alpha) * direction)
+    return st, x_try
+
+
+def lbfgs_update_plain(st: _BState, x_try, f_try, g_try,
+                       config: LBFGSConfig) -> _BState:
+    """Plain K5: the state after the evaluation ``(f_try, g_try)`` at
+    ``x_try`` of a state opened by ``lbfgs_open_plain``. Non-finite
+    gradient entries count as 0 and a non-finite value as +inf (the JAX
+    engine's ``safe_vg``); lanes that were done keep every field. Builds
+    new tensors."""
+    where = torch.where
+    m = config.history
+    c1, c2 = config.wolfe_c1, config.wolfe_c2
+    i0 = torch.zeros_like(st.stage)
+    false = torch.zeros_like(st.done)
+    ones = torch.ones_like(st.f)
+    g_try = where(torch.isfinite(g_try), g_try, torch.zeros_like(g_try))
+    f_try = where(torch.isfinite(f_try), f_try,
+                  torch.full_like(f_try, float("inf")))
+    alpha, dg0, f_lo, f_prev = st.alpha, st.dg0, st.f_lo, st.f_prev
+    a_lo, a_hi, a_prev = st.a_lo, st.a_hi, st.a_prev
+    dg_try = _dot(g_try, st.direction)
+    n_evals = st.n_evals + 1
+    ls_evals = st.ls_evals + 1
+
+    f0 = st.f
+    armijo_fail = f_try > f0 + c1 * alpha * dg0
+    wolfe_ok = (~armijo_fail) & (torch.abs(dg_try) <= -c2 * dg0)
+
+    br_hi_from_fail = armijo_fail | ((f_try >= f_prev) & (ls_evals > 1))
+    br_enter_zoom = br_hi_from_fail | (
+        (~br_hi_from_fail) & (~wolfe_ok) & (dg_try >= 0))
+    br_accept = wolfe_ok & ~br_hi_from_fail
+    br_stage = where(br_accept, 2, where(br_enter_zoom, 1, 0)).to(i0.dtype)
+    br_a_lo = where(br_hi_from_fail, a_prev, alpha)
+    br_f_lo = where(br_hi_from_fail, f_prev, f_try)
+    br_a_hi = where(br_hi_from_fail, alpha, a_prev)
+    br_alpha = where(br_stage == 1, 0.5 * (br_a_lo + br_a_hi),
+                     where(br_stage == 0, alpha * 2.0, alpha))
+
+    zm_accept = wolfe_ok
+    zm_shrink_hi = armijo_fail | (f_try >= f_lo)
+    zm_flip = (~zm_shrink_hi) & (dg_try * (a_hi - a_lo) >= 0)
+    zm_a_hi = where(zm_shrink_hi, alpha, where(zm_flip, a_lo, a_hi))
+    zm_a_lo = where(zm_shrink_hi, a_lo, alpha)
+    zm_f_lo = where(zm_shrink_hi, f_lo, f_try)
+    interval_dead = (torch.abs(zm_a_hi - zm_a_lo)
+                     * torch.clamp(torch.abs(dg0), min=1.0) < 1e-14)
+    zm_stage = where(zm_accept | interval_dead, 2, 1).to(i0.dtype)
+    span = zm_a_lo - alpha
+    denom = where(torch.abs(span) > 1e-30, span, ones)
+    curv = (zm_f_lo - f_try - dg_try * span) / (denom * denom)
+    t_interp = alpha - dg_try / (2.0 * torch.clamp(curv, min=1e-30))
+    lo_b = torch.minimum(zm_a_lo, zm_a_hi)
+    hi_b = torch.maximum(zm_a_lo, zm_a_hi)
+    width = hi_b - lo_b
+    interp_ok = ((curv > 0) & torch.isfinite(t_interp)
+                 & (t_interp > lo_b + 0.1 * width)
+                 & (t_interp < hi_b - 0.1 * width))
+    zm_alpha = where(interp_ok, t_interp, 0.5 * (zm_a_lo + zm_a_hi))
+
+    in_zoom = st.stage == 1
+    accept = where(in_zoom, zm_accept, br_accept)
+    new_stage = where(in_zoom, zm_stage, br_stage)
+    new_a_lo = where(in_zoom, zm_a_lo, br_a_lo)
+    new_a_hi = where(in_zoom, zm_a_hi, br_a_hi)
+    new_f_lo = where(in_zoom, zm_f_lo, br_f_lo)
+    next_alpha = where(in_zoom, zm_alpha, br_alpha)
+
+    take_star = accept | ((f_try < st.f_star) & (new_stage != 2))
+    a_star = where(take_star, alpha, st.a_star)
+    f_star = where(take_star, f_try, st.f_star)
+    g_star = where(_col(take_star), g_try, st.g_star)
+    x_star = where(_col(take_star), x_try, st.x_star)
+    ok = st.ok | take_star
+
+    ls_exhausted = ls_evals >= config.max_linesearch
+    end_iter = (new_stage == 2) | ls_exhausted
+
+    x_new, f_new, g_new = x_star, f_star, g_star
+    s = x_new - st.x
+    y = g_new - st.g
+    sy = _dot(s, y)
+    yy = _dot(y, y)
+    good_pair = end_iter & ok & (
+        sy > 1e-10 * torch.sqrt(_dot(s, s) * yy + 1e-300))
+    gp = _col(good_pair)
+    lanes = torch.arange(st.x.shape[0], device=st.x.device)
+    s_hist = st.s_hist.clone()
+    y_hist = st.y_hist.clone()
+    rho_hist = st.rho_hist.clone()
+    s_hist[lanes, st.head] = where(gp, s, st.s_hist[lanes, st.head])
+    y_hist[lanes, st.head] = where(gp, y, st.y_hist[lanes, st.head])
+    rho_hist[lanes, st.head] = where(
+        good_pair, 1.0 / torch.clamp(sy, min=1e-300),
+        st.rho_hist[lanes, st.head])
+    head = where(good_pair, torch.remainder(st.head + 1, m), st.head)
+    hist_len = where(good_pair, torch.clamp(st.hist_len + 1, max=m),
+                     st.hist_len)
+    gamma = where(good_pair, sy / torch.clamp(yy, min=1e-300), st.gamma)
+
+    n_iters = st.n_iters + end_iter.to(i0.dtype)
+    gconv = torch.amax(torch.abs(g_new), dim=-1) <= config.gtol
+    fconv = (st.f - f_new) <= config.ftol * torch.clamp(
+        torch.maximum(torch.abs(st.f), torch.abs(f_new)), min=1.0)
+    ls_failed = end_iter & ~ok
+    converged = end_iter & (gconv | (fconv & ok))
+    n_fail = where(end_iter, where(ok, i0, st.n_fail + 1), st.n_fail)
+    give_up = end_iter & (n_fail > config.max_restarts)
+    reset = ls_failed & ~give_up
+    hist_len = where(reset, i0, hist_len)
+    head = where(reset, i0, head)
+    gamma = where(reset, ones, gamma)
+    eval_cap = ((n_evals >= config.maxeval) if config.maxeval > 0
+                else false)
+    done = converged | give_up | (n_iters >= config.maxiter) | eval_cap
+
+    commit = end_iter & ok
+    x_c = where(_col(commit), x_new, st.x)
+    f_c = where(commit, f_new, st.f)
+    g_c = where(_col(commit), g_new, st.g)
+
+    boot = st.bootstrap
+    x_c = where(_col(boot), x_try, x_c)
+    f_c = where(boot, f_try, f_c)
+    g_c = where(_col(boot), g_try, g_c)
+    n_iters = where(boot, i0, n_iters)
+    n_fail = where(boot, i0, n_fail)
+    done = where(boot, false, done)
+    converged_new = where(boot, false, st.converged | converged)
+    end_or_boot = end_iter | boot
+
+    b3 = boot[:, None, None]
+    new = _BState(
+        x=x_c, f=f_c, g=g_c,
+        s_hist=where(b3, st.s_hist, s_hist),
+        y_hist=where(b3, st.y_hist, y_hist),
+        rho_hist=where(_col(boot), st.rho_hist, rho_hist),
+        hist_len=where(boot, st.hist_len, hist_len),
+        head=where(boot, st.head, head),
+        gamma=where(boot, st.gamma, gamma),
+        n_iters=n_iters, n_evals=n_evals, n_fail=n_fail,
+        done=done, converged=converged_new,
+        bootstrap=false, starting=end_or_boot,
+        direction=st.direction, dg0=dg0,
+        stage=new_stage, alpha=next_alpha,
+        a_lo=new_a_lo, a_hi=new_a_hi, f_lo=new_f_lo,
+        a_prev=alpha, f_prev=f_try, ls_evals=ls_evals,
+        a_star=a_star, f_star=f_star, g_star=g_star, x_star=x_star,
+        ok=ok)
+    # Done lanes hold their state.
+    return _BState(*(torch.where(st.done.view(-1, *([1] * (old.dim() - 1))),
+                                 old, upd) for old, upd in zip(st, new)))
+
+
+# ------------------------------------------------------------- wrappers --
+
+def _check_state(st: _BState, config: LBFGSConfig):
+    """(L, d, m) of a state the kernels take; raises on anything else."""
+    if not isinstance(st, _BState):
+        raise TypeError("the L-BFGS trip takes a _BState")
+    L, d = st.x.shape
+    m = config.history
+    dt, dev = st.x.dtype, st.x.device
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"K4/K5 take float32 or float64, got {dt}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"K4/K5 take CUDA or CPU tensors, got {dev}")
+    if not 1 <= d <= MAX_DIM or not 1 <= m <= MAX_HISTORY:
+        raise ValueError(f"K4/K5 take 1 <= d <= {MAX_DIM} and 1 <= history "
+                         f"<= {MAX_HISTORY}, got d={d}, history={m}")
+    shapes = {"d": (L, d), "md": (L, m, d), "m": (L, m), "": (L,)}
+    types = {"t": dt, "i": torch.int32, "b": torch.bool}
+    for name, (shape, kind) in _LAYOUT.items():
+        t = getattr(st, name)
+        if (t.shape != shapes[shape] or t.dtype != types[kind]
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"state field {name}: expected contiguous {types[kind]} "
+                f"{shapes[shape]} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    return L, d, m
+
+
+def _check_status(status: torch.Tensor, dev):
+    if (status.shape != (2,) or status.dtype != torch.int32
+            or status.device != dev):
+        raise ValueError("status must be int32 [2] (live count, error "
+                         "word) on the state's device")
+
+
+def _flag_bad_lanes(st: _BState, m: int, status: torch.Tensor):
+    """Plain counterpart of the kernels' index check: a lane that is not
+    done with ``head`` outside [0, m) or ``hist_len`` outside [0, m] sets
+    the error word to 1 + its index (the lowest such lane here). Returns
+    the state the plain versions run on, with those lanes marked done so
+    that they are left as they are, as the kernels leave them, and every
+    out-of-range head at 0 so that no lane indexes outside the history."""
+    out = (st.head < 0) | (st.head >= m)
+    bad = ~st.done & (out | (st.hist_len < 0) | (st.hist_len > m))
+    if bad.numel():
+        first = torch.argmax(bad.to(torch.int8)).to(torch.int32) + 1
+        status[1] = torch.where((status[1] == 0) & bad.any(), first,
+                                status[1])
+    return st._replace(done=st.done | bad,
+                       head=torch.where(out, torch.zeros_like(st.head),
+                                        st.head))
+
+
+def _assign(st: _BState, new: _BState, held: _BState):
+    """Write ``new`` into ``st`` in place, with ``done`` and ``head`` kept
+    from ``st`` on the lanes that ``held`` altered (and held)."""
+    altered = (held.done != st.done) | (held.head != st.head)
+    new = new._replace(done=torch.where(altered, st.done, new.done),
+                       head=torch.where(altered, st.head, new.head))
+    for old, upd in zip(st, new):
+        if old is not upd:
+            old.copy_(upd)
+
+
+def _open_plain_inplace(st, config, status):
+    held = _flag_bad_lanes(st, config.history, status)
+    status[0] = 0
+    new, x_try = lbfgs_open_plain(held, config)
+    _assign(st, new, held)
+    return x_try
+
+
+def _update_plain_inplace(st, x_try, f_try, g_try, config, status):
+    held = _flag_bad_lanes(st, config.history, status)
+    _assign(st, lbfgs_update_plain(held, x_try, f_try, g_try, config), held)
+    status[0] = torch.count_nonzero(~st.done).to(torch.int32)
+
+
+_OPEN_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p]
+# state, x_try, f_try, g_try, status; c1, c2, ftol, gtol; max_linesearch,
+# max_restarts, maxiter, maxeval, L, d, m; stream
+_UPDATE_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4
+                    + [ctypes.c_double] * 4 + [ctypes.c_int] * 7
+                    + [ctypes.c_void_p])
+
+
+def _suffix(dt):
+    return "f32" if dt == torch.float32 else "f64"
+
+
+def _count_key(kind, dt):
+    return f"lbfgs_{kind}" + ("" if dt == torch.float32 else "_f64")
+
+
+def _pointers(st: _BState):
+    return (ctypes.c_void_p * len(st))(*(t.data_ptr() for t in st))
+
+
+def lbfgs_open(st: _BState, config: LBFGSConfig,
+               status: torch.Tensor) -> torch.Tensor:
+    """K4: open the lanes that start an iteration, in place, and return
+    ``x_try [L, d]``; zero the live count ``status[0]``. A lane that is not
+    done whose ``head`` or ``hist_len`` lies outside [0, m) / [0, m] sets
+    the error word ``status[1]`` to 1 + its index and is left as it is.
+    CUDA tensors launch the kernel; CPU tensors run ``lbfgs_open_plain``."""
+    L, d, m = _check_state(st, config)
+    _check_status(status, st.x.device)
+    if st.x.device.type == "cpu":
+        return _open_plain_inplace(st, config, status)
+    x_try = torch.empty_like(st.x)
+    if L == 0:
+        status[0] = 0
+        return x_try
+    dt = st.x.dtype
+    err = kernel_build.entry("lbfgs_trip", f"lbfgs_open_{_suffix(dt)}",
+                             _OPEN_ARGTYPES)(
+        _pointers(st), x_try.data_ptr(), status.data_ptr(), L, d, m,
+        torch.cuda.current_stream(st.x.device).cuda_stream)
+    kernel_build.check(err, _count_key("open", dt))
+    LAUNCHES[_count_key("open", dt)] += 1
+    return x_try
+
+
+def _trial(st: _BState, x_try, f_try, g_try):
+    """The evaluation's tensors, checked against the state; contiguous."""
+    L, d = st.x.shape
+    dt, dev = st.x.dtype, st.x.device
+    for name, t, shape in (("x_try", x_try, (L, d)), ("f_try", f_try, (L,)),
+                           ("g_try", g_try, (L, d))):
+        if t.shape != shape or t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name}: expected {dt} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return x_try.contiguous(), f_try.contiguous(), g_try.contiguous()
+
+
+def lbfgs_update(st: _BState, x_try, f_try, g_try, config: LBFGSConfig,
+                 status: torch.Tensor) -> None:
+    """K5: advance every lane that is not done by the evaluation
+    ``(f_try [L], g_try [L, d])`` at ``x_try``, in place, and add the count
+    of lanes not done afterwards to ``status[0]``; the index check of
+    ``lbfgs_open`` sets ``status[1]``. CUDA tensors launch the kernel; CPU
+    tensors run ``lbfgs_update_plain``."""
+    L, d, m = _check_state(st, config)
+    _check_status(status, st.x.device)
+    x_try, f_try, g_try = _trial(st, x_try, f_try, g_try)
+    if st.x.device.type == "cpu":
+        _update_plain_inplace(st, x_try, f_try, g_try, config, status)
+        return
+    if L == 0:
+        return
+    dt = st.x.dtype
+    err = kernel_build.entry("lbfgs_trip", f"lbfgs_update_{_suffix(dt)}",
+                             _UPDATE_ARGTYPES)(
+        _pointers(st), x_try.data_ptr(), f_try.data_ptr(), g_try.data_ptr(),
+        status.data_ptr(), float(config.wolfe_c1), float(config.wolfe_c2),
+        float(config.ftol), float(config.gtol), int(config.max_linesearch),
+        int(config.max_restarts), int(config.maxiter), int(config.maxeval),
+        L, d, m, torch.cuda.current_stream(st.x.device).cuda_stream)
+    kernel_build.check(err, _count_key("update", dt))
+    LAUNCHES[_count_key("update", dt)] += 1
+
+
+def read_live(status: torch.Tensor) -> int:
+    """The live count of the last trip, read with the error word in one
+    host read; raises, naming the lane, if the error word is set."""
+    live, err = status.tolist()
+    if err:
+        raise RuntimeError(
+            f"L-BFGS lane {err - 1}: head or hist_len outside [0, m) / "
+            f"[0, m] (the circular history is corrupt)")
+    return live
+
+
+def _run(vg_fn: Callable, x0: torch.Tensor, config: LBFGSConfig,
+         open_fn: Callable = lbfgs_open,
+         update_fn: Callable = lbfgs_update) -> LBFGSResult:
+    """The engine's loop over one pair of trip functions with the
+    wrappers' in-place signatures: the kernels (the default) or
+    ``_open_plain_inplace`` / ``_update_plain_inplace``, which the card's
+    checks run to hold the kernels against the plain pair."""
+    st = init_state(x0, config.history)
+    status = torch.zeros(2, dtype=torch.int32, device=x0.device)
+    live = x0.shape[0]
+    while live:
+        x_try = open_fn(st, config, status)
+        f_try, g_try = vg_fn(x_try)
+        update_fn(st, x_try, f_try, g_try, config, status)
+        live = read_live(status)
+    return LBFGSResult(x=st.x, f=st.f, grad=st.g, n_iters=st.n_iters,
+                       n_evals=st.n_evals, converged=st.converged)
+
+
 def lbfgs_minimize_batched(vg_fn: Callable, x0: torch.Tensor,
                            config: LBFGSConfig = LBFGSConfig()
                            ) -> LBFGSResult:
     """Minimize every lane of ``x0 [L, d]`` with the flat state machine.
 
     Non-finite gradient entries returned by ``vg_fn`` are zeroed and
-    non-finite values count as +inf.
+    non-finite values count as +inf. On CUDA tensors every trip runs K4
+    and K5; on CPU tensors their plain versions.
     """
-    dt, dev = x0.dtype, x0.device
-    L, d = x0.shape
-    m = config.history
-    c1, c2 = config.wolfe_c1, config.wolfe_c2
-    zeros = torch.zeros((L,), dtype=dt, device=dev)
-    ones = torch.ones((L,), dtype=dt, device=dev)
-    infs = torch.full((L,), float("inf"), dtype=dt, device=dev)
-    i0 = torch.zeros((L,), dtype=torch.int32, device=dev)
-    false = torch.zeros((L,), dtype=torch.bool, device=dev)
-    lanes = torch.arange(L, device=dev)
-    where = torch.where
-
-    def safe_vg(x):
-        f, g = vg_fn(x)
-        return f, where(torch.isfinite(g), g, torch.zeros_like(g))
-
-    st = _BState(
-        x=x0, f=infs, g=torch.zeros_like(x0),
-        s_hist=torch.zeros((L, m, d), dtype=dt, device=dev),
-        y_hist=torch.zeros((L, m, d), dtype=dt, device=dev),
-        rho_hist=torch.zeros((L, m), dtype=dt, device=dev), hist_len=i0,
-        head=i0, gamma=ones, n_iters=i0, n_evals=i0, n_fail=i0, done=false,
-        converged=false, bootstrap=~false, starting=false,
-        direction=torch.zeros_like(x0), dg0=zeros, stage=i0, alpha=zeros,
-        a_lo=zeros, a_hi=zeros, f_lo=infs, a_prev=zeros, f_prev=infs,
-        ls_evals=i0, a_star=zeros, f_star=infs, g_star=torch.zeros_like(x0),
-        x_star=x0, ok=false)
-
-    while bool(torch.any(~st.done)):
-        direction = _two_loop_direction(st.g, st.s_hist, st.y_hist,
-                                        st.rho_hist, st.hist_len, st.head,
-                                        st.gamma)
-        dgn = _dot(direction, st.g)
-        bad_dir = (dgn >= 0) | ~torch.isfinite(dgn)
-        direction = where(_col(bad_dir), -st.g, direction)
-        gmax = torch.amax(torch.abs(st.g), dim=-1)
-        first = st.hist_len == 0
-        init_step = where(first, torch.clamp(1.0 / torch.clamp(gmax, min=1e-8),
-                                             max=1.0), ones)
-
-        opening = st.starting
-        direction = where(_col(opening), direction, st.direction)
-        dg0 = where(opening, _dot(direction, st.g), st.dg0)
-        alpha = where(opening, init_step, st.alpha)
-        stage = where(opening, i0, st.stage)
-        a_lo = where(opening, zeros, st.a_lo)
-        a_hi = where(opening, zeros, st.a_hi)
-        f_lo = where(opening, st.f, st.f_lo)
-        a_prev = where(opening, zeros, st.a_prev)
-        f_prev = where(opening, st.f, st.f_prev)
-        ls_evals = where(opening, i0, st.ls_evals)
-        a_star = where(opening, zeros, st.a_star)
-        f_star = where(opening, st.f, st.f_star)
-        g_star = where(_col(opening), st.g, st.g_star)
-        x_star = where(_col(opening), st.x, st.x_star)
-        ok = where(opening, false, st.ok)
-
-        # ---- the one batch-level evaluation of this trip ----
-        x_try = where(_col(st.bootstrap), st.x, st.x + _col(alpha) * direction)
-        f_try, g_try = safe_vg(x_try)
-        f_try = where(torch.isfinite(f_try), f_try, infs)
-        dg_try = _dot(g_try, direction)
-        n_evals = st.n_evals + 1
-        ls_evals = ls_evals + 1
-
-        f0 = st.f
-        armijo_fail = f_try > f0 + c1 * alpha * dg0
-        wolfe_ok = (~armijo_fail) & (torch.abs(dg_try) <= -c2 * dg0)
-
-        br_hi_from_fail = armijo_fail | ((f_try >= f_prev) & (ls_evals > 1))
-        br_enter_zoom = br_hi_from_fail | (
-            (~br_hi_from_fail) & (~wolfe_ok) & (dg_try >= 0))
-        br_accept = wolfe_ok & ~br_hi_from_fail
-        br_stage = where(br_accept, 2, where(br_enter_zoom, 1, 0)).to(i0.dtype)
-        br_a_lo = where(br_hi_from_fail, a_prev, alpha)
-        br_f_lo = where(br_hi_from_fail, f_prev, f_try)
-        br_a_hi = where(br_hi_from_fail, alpha, a_prev)
-        br_alpha = where(br_stage == 1, 0.5 * (br_a_lo + br_a_hi),
-                         where(br_stage == 0, alpha * 2.0, alpha))
-
-        zm_accept = wolfe_ok
-        zm_shrink_hi = armijo_fail | (f_try >= f_lo)
-        zm_flip = (~zm_shrink_hi) & (dg_try * (a_hi - a_lo) >= 0)
-        zm_a_hi = where(zm_shrink_hi, alpha, where(zm_flip, a_lo, a_hi))
-        zm_a_lo = where(zm_shrink_hi, a_lo, alpha)
-        zm_f_lo = where(zm_shrink_hi, f_lo, f_try)
-        interval_dead = (torch.abs(zm_a_hi - zm_a_lo)
-                         * torch.clamp(torch.abs(dg0), min=1.0) < 1e-14)
-        zm_stage = where(zm_accept | interval_dead, 2, 1).to(i0.dtype)
-        span = zm_a_lo - alpha
-        denom = where(torch.abs(span) > 1e-30, span, ones)
-        curv = (zm_f_lo - f_try - dg_try * span) / (denom * denom)
-        t_interp = alpha - dg_try / (2.0 * torch.clamp(curv, min=1e-30))
-        lo_b = torch.minimum(zm_a_lo, zm_a_hi)
-        hi_b = torch.maximum(zm_a_lo, zm_a_hi)
-        width = hi_b - lo_b
-        interp_ok = ((curv > 0) & torch.isfinite(t_interp)
-                     & (t_interp > lo_b + 0.1 * width)
-                     & (t_interp < hi_b - 0.1 * width))
-        zm_alpha = where(interp_ok, t_interp, 0.5 * (zm_a_lo + zm_a_hi))
-
-        in_zoom = stage == 1
-        accept = where(in_zoom, zm_accept, br_accept)
-        new_stage = where(in_zoom, zm_stage, br_stage)
-        new_a_lo = where(in_zoom, zm_a_lo, br_a_lo)
-        new_a_hi = where(in_zoom, zm_a_hi, br_a_hi)
-        new_f_lo = where(in_zoom, zm_f_lo, br_f_lo)
-        next_alpha = where(in_zoom, zm_alpha, br_alpha)
-
-        take_star = accept | ((f_try < f_star) & (new_stage != 2))
-        a_star = where(take_star, alpha, a_star)
-        f_star = where(take_star, f_try, f_star)
-        g_star = where(_col(take_star), g_try, g_star)
-        x_star = where(_col(take_star), x_try, x_star)
-        ok = ok | take_star
-
-        ls_exhausted = ls_evals >= config.max_linesearch
-        end_iter = (new_stage == 2) | ls_exhausted
-
-        x_new, f_new, g_new = x_star, f_star, g_star
-        s = x_new - st.x
-        y = g_new - st.g
-        sy = _dot(s, y)
-        yy = _dot(y, y)
-        good_pair = end_iter & ok & (
-            sy > 1e-10 * torch.sqrt(_dot(s, s) * yy + 1e-300))
-        gp = _col(good_pair)
-        s_hist = st.s_hist.clone()
-        y_hist = st.y_hist.clone()
-        rho_hist = st.rho_hist.clone()
-        s_hist[lanes, st.head] = where(gp, s, st.s_hist[lanes, st.head])
-        y_hist[lanes, st.head] = where(gp, y, st.y_hist[lanes, st.head])
-        rho_hist[lanes, st.head] = where(
-            good_pair, 1.0 / torch.clamp(sy, min=1e-300),
-            st.rho_hist[lanes, st.head])
-        head = where(good_pair, torch.remainder(st.head + 1, m), st.head)
-        hist_len = where(good_pair, torch.clamp(st.hist_len + 1, max=m),
-                         st.hist_len)
-        gamma = where(good_pair, sy / torch.clamp(yy, min=1e-300), st.gamma)
-
-        n_iters = st.n_iters + end_iter.to(i0.dtype)
-        gconv = torch.amax(torch.abs(g_new), dim=-1) <= config.gtol
-        fconv = (st.f - f_new) <= config.ftol * torch.clamp(
-            torch.maximum(torch.abs(st.f), torch.abs(f_new)), min=1.0)
-        ls_failed = end_iter & ~ok
-        converged = end_iter & (gconv | (fconv & ok))
-        n_fail = where(end_iter, where(ok, i0, st.n_fail + 1), st.n_fail)
-        give_up = end_iter & (n_fail > config.max_restarts)
-        reset = ls_failed & ~give_up
-        hist_len = where(reset, i0, hist_len)
-        head = where(reset, i0, head)
-        gamma = where(reset, ones, gamma)
-        eval_cap = ((n_evals >= config.maxeval) if config.maxeval > 0
-                    else false)
-        done = converged | give_up | (n_iters >= config.maxiter) | eval_cap
-
-        commit = end_iter & ok
-        x_c = where(_col(commit), x_new, st.x)
-        f_c = where(commit, f_new, st.f)
-        g_c = where(_col(commit), g_new, st.g)
-
-        boot = st.bootstrap
-        x_c = where(_col(boot), x_try, x_c)
-        f_c = where(boot, f_try, f_c)
-        g_c = where(_col(boot), g_try, g_c)
-        n_iters = where(boot, i0, n_iters)
-        n_fail = where(boot, i0, n_fail)
-        done = where(boot, false, done)
-        converged_new = where(boot, false, st.converged | converged)
-        end_or_boot = end_iter | boot
-
-        b3 = boot[:, None, None]
-        new = _BState(
-            x=x_c, f=f_c, g=g_c,
-            s_hist=where(b3, st.s_hist, s_hist),
-            y_hist=where(b3, st.y_hist, y_hist),
-            rho_hist=where(_col(boot), st.rho_hist, rho_hist),
-            hist_len=where(boot, st.hist_len, hist_len),
-            head=where(boot, st.head, head),
-            gamma=where(boot, st.gamma, gamma),
-            n_iters=n_iters, n_evals=n_evals, n_fail=n_fail,
-            done=done, converged=converged_new,
-            bootstrap=false, starting=end_or_boot,
-            direction=direction, dg0=dg0,
-            stage=new_stage, alpha=next_alpha,
-            a_lo=new_a_lo, a_hi=new_a_hi, f_lo=new_f_lo,
-            a_prev=alpha, f_prev=f_try, ls_evals=ls_evals,
-            a_star=a_star, f_star=f_star, g_star=g_star, x_star=x_star,
-            ok=ok)
-        # Done lanes hold their state.
-        st = _BState(*(where(st.done.view(-1, *([1] * (old.dim() - 1))),
-                             old, upd) for old, upd in zip(st, new)))
-
-    return LBFGSResult(x=st.x, f=st.f, grad=st.g, n_iters=st.n_iters,
-                       n_evals=st.n_evals, converged=st.converged)
+    return _run(vg_fn, x0, config)

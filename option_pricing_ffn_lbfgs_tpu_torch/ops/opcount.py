@@ -18,6 +18,14 @@ count each input byte read once and each output byte written once:
     maturity), one CF item per (surface, effective group, k), one payoff
     term per (row, k) and the row's own set-up.
 
+  * K4/K5 (the L-BFGS trip, ``csrc/lbfgs_trip.cu``): the state fields
+    each lane's branch reads and writes, counted from the state the
+    launch sees (done lanes read their flag, and K4 copies their x; an
+    opening lane reads ``hist_len`` history pairs; K5 writes a history row
+    where the lane stored a pair), and the arithmetic as the kernels write
+    it, per coordinate and per pair. Both are bound by bytes by two orders
+    of magnitude.
+
 ``bound_ms`` is the larger of operations over the card's peak rate for
 their type and bytes over its memory rate (NVIDIA H100 SXM data sheet:
 67 TFLOP/s FP32 and 34 TFLOP/s FP64 outside the tensor cores, 3.35 TB/s).
@@ -128,6 +136,45 @@ def cos_price_work(params, spots, strikes, maturities, is_call, n_terms: int,
                                      is_call))
               + strikes.numel() * params.element_size())
     return {"ops": ops, "bytes": nbytes, "effective_groups": int(n_eff.sum())}
+
+
+def lbfgs_open_work(st) -> Dict[str, float]:
+    """Operations and bytes of one K4 launch on the state ``st``
+    (``ops/lbfgs_batched.py::_BState``), before the launch."""
+    L, d = st.x.shape
+    t = st.x.element_size()
+    live = ~st.done
+    opening = live & st.starting
+    moving = live & ~st.starting
+    pairs = int(st.hist_len[opening].clamp(min=0).sum())
+    n_open, n_move, n_live = (int(v.sum()) for v in (opening, moving, live))
+    nbytes = (L * (1 + 2 * d * t)                 # done, x, x_try
+              + n_live * (4 + 4 + 1 + 1)          # head, hist_len, flags
+              + n_move * (t + d * t)              # alpha, direction
+              + n_open * (2 * t + d * t           # g, gamma, f
+                          + 3 * d * t             # direction, g_star, x_star
+                          + 9 * t + 4 + 4 + 1)    # opening resets
+              + pairs * (2 * d * t + t)           # history rows, rho
+              + 4)                                # live count
+    ops = pairs * (8 * d + 3) + n_open * (10 * d + 5) + n_move * 2 * d
+    return {"ops": ops, "bytes": nbytes}
+
+
+def lbfgs_update_work(before, after) -> Dict[str, float]:
+    """Operations and bytes of one K5 launch that took the state
+    ``before`` to ``after``."""
+    L, d = before.x.shape
+    t = before.x.element_size()
+    live = ~before.done
+    n_live = int(live.sum())
+    pairs = int((live & ~before.bootstrap
+                 & (after.rho_hist != before.rho_hist).any(-1)).sum())
+    nbytes = (L * 1 + 4                           # done, live count
+              + n_live * (8 + 7 * d * t + 12 * t + 20 + 3   # reads
+                          + 4 * d * t + 10 * t + 28 + 5)    # writes
+              + pairs * (2 * d * t + t))          # history row, rho
+    ops = n_live * (13 * d + 60)
+    return {"ops": ops, "bytes": nbytes}
 
 
 def bound_ms(work: Dict[str, float], dtype: torch.dtype):

@@ -2,6 +2,8 @@
 ablation (``error_ablation``), the measurement tool (``ab_parent``), the
 surrogate's training pipeline (``train_pipeline``), the graft-entry twin
 (``graft_entry``) and the multi-process check it shares with the tests
-(``dist_check``), and the drivers ``bench_scaling``, ``profile_search``,
-``bench_raw_draws`` and ``make_results``; nothing on a calibration path
+(``dist_check``), the drivers ``bench_scaling``, ``profile_search``,
+``bench_raw_draws`` and ``make_results``, and the L-BFGS trip's checks
+(``trip_check``: K4/K5 against their plain pair; ``hybrid_soak``: the
+error word over many hybrid calls); nothing on a calibration path
 imports them."""

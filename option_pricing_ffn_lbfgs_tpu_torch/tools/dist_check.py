@@ -59,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from ..calibration.calibrator import BatchCalibration
-from ..ops import cos_kernel, loss_kernel
+from ..ops import cos_kernel, lbfgs_batched, loss_kernel
 from ..parallel.mesh import (distributed_init, free_port, local_device,
                               make_mesh)
 from ..parallel.sharded import calibrate_sharded
@@ -196,7 +196,8 @@ def ffn_grad_error(got: dict, ref: dict) -> float:
 
 
 def launch_counts() -> dict:
-    return {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES}
+    return {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES,
+            **lbfgs_batched.LAUNCHES}
 
 
 def main(rank: int, world: int, coordinator: str, device: str,
@@ -215,7 +216,8 @@ def main(rank: int, world: int, coordinator: str, device: str,
         # allocator's first blocks, the groups' first collectives
         run(dataclasses.replace(prob.config, lbfgs=dataclasses.replace(
             prob.config.lbfgs, maxiter=2)))
-        for counts in (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES):
+        for counts in (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES,
+                       lbfgs_batched.LAUNCHES):
             for k in counts:
                 counts[k] = 0
         synchronize(dev)

@@ -5,17 +5,21 @@
         [--batches 8,64,512,2048] [--k 64] [--n-terms 64] [--out FILE] \\
         [--device cuda]
 
-Three sections per batch size B, each over ``[B, S = 3]`` lanes of 15
+Four sections per batch size B, each over ``[B, S = 3]`` lanes of 15
 options at N COS terms (the search's shapes):
 
   * ``scan_eval``: K chained calls of ``make_batch_value_and_grad``'s
     value-and-grad, each folding its gradient back into x: K2 and its
     host assembly, no optimizer bookkeeping;
   * ``scan_bookkeep``: K chained ``_two_loop_direction`` calls
-    (``ops/lbfgs_batched.py``) on a full 10-pair history: the L-BFGS
-    state machine's direction, no pricer;
+    (``ops/lbfgs_batched.py``) on a full 10-pair history: the plain
+    two-loop direction, no pricer;
+  * ``scan_open``: K launches of K4 (``lbfgs_open``) on the same
+    history with every lane opening an iteration, so each launch runs the
+    two-loop on every lane (on CPU tensors, its plain version);
   * ``full_search``: ``calibrate_batch`` with ``maxeval`` capped at 160,
-    reported per evaluation of the winner with the most.
+    reported per evaluation of the winner with the most (on the card every
+    trip is K4, K2 with its assembly, K5 and one host read).
 
 Each section's ``*_ms_per_*`` is the chained protocol's (CUDA events, the
 median of 3 trials; the first call, which builds or loads the kernels,
@@ -43,7 +47,7 @@ from ..calibration.calibrator import calibrate_batch
 from ..calibration.initial_guess import initial_guesses
 from ..calibration.transforms import transform
 from ..ops import opcount
-from ..ops.lbfgs_batched import _two_loop_direction
+from ..ops import lbfgs_batched as lb
 from ..ops.loss_kernel import make_batch_value_and_grad
 from ..utils.config import CalibrationConfig, LBFGSConfig, PricerConfig
 from ..utils.timing import (device_busy_ms, profile_trace, synchronize,
@@ -111,11 +115,28 @@ def profile_batch(b: int, k: int, n_terms: int, device) -> dict:
     def scan_bookkeep():
         g = g0
         for _ in range(k):
-            d = _two_loop_direction(g, s_h, y_h, rho, hist_len, head, gamma)
+            d = lb._two_loop_direction(g, s_h, y_h, rho, hist_len, head,
+                                       gamma)
             g = d * 0.999 + g * 1e-3
         return g.sum()
 
-    # 3. the real search; its wall and busy time come from a run capped at
+    # 3. K4 on the same history, every lane opening: the live fields are
+    # set once and K4 rewrites the same opening fields on every launch
+    st = lb.init_state(torch.zeros_like(g0), M_HIST)._replace(
+        g=g0, s_hist=s_h.contiguous(), y_hist=y_h.contiguous(),
+        rho_hist=rho.contiguous(), hist_len=hist_len.clone(),
+        head=head.clone(), gamma=gamma.clone())
+    st.bootstrap.zero_()
+    st.starting.fill_(True)
+    open_cfg = LBFGSConfig(history=M_HIST)
+    status = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def scan_open():
+        for _ in range(k):
+            x_try = lb.lbfgs_open(st, open_cfg, status)
+        return x_try.sum()
+
+    # 4. the real search; its wall and busy time come from a run capped at
     # K evaluations (a trip costs the same early and late, and a profiler
     # window over all 160 trips holds ~100,000 device launches)
     search = lambda c: (lambda: calibrate_batch(
@@ -127,11 +148,12 @@ def profile_batch(b: int, k: int, n_terms: int, device) -> dict:
 
     t_eval = time_jitted(scan_eval, repeats=3, chain=1, device=dev)
     t_dir = time_jitted(scan_bookkeep, repeats=3, chain=1, device=dev)
+    t_open = time_jitted(scan_open, repeats=3, chain=1, device=dev)
     t_full = time_jitted(full, repeats=3, chain=1, device=dev)
     max_evals = int(full().n_evals.max())
     k_evals = int(full_k().n_evals.max())
     walls = [_wall_and_busy_ms(fn, dev)
-             for fn in (scan_eval, scan_bookkeep, full_k)]
+             for fn in (scan_eval, scan_bookkeep, scan_open, full_k)]
     per = lambda ms, n: None if ms is None else ms / n
     work = opcount.cos_vg_work(transform(x_flat), rep(spots), rep(bs),
                                rep(bm), rep(bc), rep(bp), n_terms, "loss")
@@ -148,8 +170,11 @@ def profile_batch(b: int, k: int, n_terms: int, device) -> dict:
         "eval_busy_ms_per_trip": per(walls[0][1], k),
         "bookkeep_wall_ms_per_trip": per(walls[1][0], k),
         "bookkeep_busy_ms_per_trip": per(walls[1][1], k),
-        "full_wall_ms_per_eval": per(walls[2][0], k_evals),
-        "full_busy_ms_per_eval": per(walls[2][1], k_evals),
+        "open_ms_per_trip": t_open.steady_s / k * 1e3,
+        "open_wall_ms_per_trip": per(walls[2][0], k),
+        "open_busy_ms_per_trip": per(walls[2][1], k),
+        "full_wall_ms_per_eval": per(walls[3][0], k_evals),
+        "full_busy_ms_per_eval": per(walls[3][1], k_evals),
     }
 
 

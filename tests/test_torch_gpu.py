@@ -676,3 +676,105 @@ def test_calibrate_sharded_one_rank_nccl_matches_unsharded(cuda, tmp_path):
     for f in calibrator.BatchCalibration._fields:
         want = getattr(ref, f).cpu().numpy()
         assert got[f].dtype == want.dtype and np.array_equal(got[f], want), f
+
+
+# K4/K5, the L-BFGS trip (csrc/lbfgs_trip.cu), against the plain pair on
+# the card (tools/trip_check.py): discrete fields equal on every lane,
+# continuous fields within 1e-10 (double) / 1e-4 (float) of each field's
+# largest entry, done lanes unchanged in bits, the live count exact.
+@pytest.mark.parametrize("n_lanes", [1, 15, 1536, 1537])
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lbfgs_trip_matches_plain(cuda, dt, n_lanes):
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    rep = trip_check.check_trip(n_lanes, dt, cuda, 7 + n_lanes)
+    assert rep["ok"], rep
+
+
+def _f64_search_lanes(cuda, n_surfaces, seed):
+    """bench.py's recipe at float64: (value-and-grad on K2<double>, x0)."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops.loss_kernel import (
+        make_batch_value_and_grad)
+    rng = np.random.default_rng(seed)
+    true = rng.uniform(LO, HI, (n_surfaces, 13))
+    data = [torch.full((n_surfaces,), 100.0, dtype=F64, device=cuda),
+            torch.tensor(np.tile(STRIKES, (n_surfaces, 1)), device=cuda),
+            torch.tensor(np.tile(MATS, (n_surfaces, 1)), device=cuda),
+            torch.ones((n_surfaces, 15), dtype=torch.bool, device=cuda)]
+    prices = cos_kernel.price_surfaces_plain(
+        torch.tensor(true, device=cuda), data[0], 0.03, *data[1:])
+    x0 = initial_guesses(3, torch.Generator().manual_seed(seed), data[0],
+                         data[1], data[2], prices).reshape(-1, 13)
+    rep = lambda a: torch.repeat_interleave(a, 3, dim=0)
+    vg = make_batch_value_and_grad(*(rep(a) for a in data), rep(prices),
+                                   0.03, CalibrationConfig())
+    return vg, x0
+
+
+def test_lbfgs_engine_f64_kernels_vs_plain(cuda):
+    """The whole engine at float64 on K2<double>, maxeval = 30, 64
+    surfaces x 3 starts: K4/K5 against the plain pair run on the card,
+    equal evaluation and iteration counts on every lane and x to 1e-7 (the
+    bar tests/test_torch_optim.py holds the engine to against JAX)."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.config import LBFGSConfig
+    vg, x0 = _f64_search_lanes(cuda, 64, 3)
+    rep = trip_check.check_engine(vg, x0, LBFGSConfig(maxeval=30))
+    assert rep["n_evals_equal"] and rep["n_iters_equal"], rep
+    assert rep["x_rel"] <= 1e-7 and rep["n_evals_max"] == 30, rep
+
+
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lbfgs_launches_equal_k2(cuda, dt):
+    """calibrate_batch on 8 surfaces: every trip launches K4, K2 and K5
+    once, at the working precision."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import lbfgs_batched
+    rng = np.random.default_rng(1)
+    true = rng.uniform(LO, HI, (8, 13))
+    data = [torch.full((8,), 100.0, dtype=F64),
+            torch.tensor(np.tile(STRIKES, (8, 1))),
+            torch.tensor(np.tile(MATS, (8, 1))),
+            torch.ones((8, 15), dtype=torch.bool)]
+    prices = port.price_surfaces(torch.tensor(true), data[0], 0.03, *data[1:])
+    counts = (loss_kernel.LAUNCHES, lbfgs_batched.LAUNCHES)
+    before = {k: v for c in counts for k, v in c.items()}
+    cfg = CalibrationConfig(pricer=PricerConfig(n_terms=64))
+    port.calibrate_batch(data[0].to(cuda), 0.03,
+                         *(a.to(cuda) for a in data[1:]), prices.to(cuda),
+                         torch.Generator().manual_seed(0), cfg, 3, dtype=dt)
+    got = {k: v - before[k] for c in counts for k, v in c.items()}
+    suffix = "_f64" if dt == F64 else ""
+    k2 = got["cos_vg_loss" + suffix]
+    assert k2 > 0
+    assert got["lbfgs_open" + suffix] == got["lbfgs_update" + suffix] == k2
+
+
+def test_lbfgs_corrupt_index_raises_on_card(cuda):
+    """A lane that is not done with head = m sets the error word: K4 and
+    K5 leave it as it is, and the loop's read raises naming the lane."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import lbfgs_batched as lb
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    cfg = trip_check.TRIP_CONFIG
+    st, f_try, g_try = trip_check.random_state(16, F64, cuda, 4, cfg)
+    st.done[:] = False
+    st.head[5] = cfg.history
+    before = trip_check.clone_state(st)
+    status = torch.zeros(2, dtype=torch.int32, device=cuda)
+    x_try = lb.lbfgs_open(st, cfg, status)
+    lb.lbfgs_update(st, x_try, f_try, g_try, cfg, status)
+    assert torch.equal(x_try[5], before.x[5])
+    for name, a, b in zip(lb._BState._fields, before, st):
+        assert torch.equal(a[5], b[5]), name
+    with pytest.raises(RuntimeError, match="lane 5"):
+        lb.read_live(status)
+
+
+def test_lbfgs_engine_raises_on_what_the_kernels_do_not_take(cuda):
+    """On the card there is no plain fallback: 65 coordinates (the kernels
+    take d <= 64) raise before any trip."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import lbfgs_batched as lb
+    x0 = torch.zeros(3, lb.MAX_DIM + 1, dtype=F64, device=cuda)
+    before = dict(lb.LAUNCHES)
+    with pytest.raises(ValueError, match="d <= 64"):
+        lb.lbfgs_minimize_batched(
+            lambda x: ((x * x).sum(-1), 2 * x), x0)
+    assert lb.LAUNCHES == before

@@ -73,7 +73,9 @@ def test_profile_search_twin(tmp_path):
                 "eval_gflops"}
     added = {"eval_wall_ms_per_trip", "eval_busy_ms_per_trip",
              "bookkeep_wall_ms_per_trip", "bookkeep_busy_ms_per_trip",
-             "full_wall_ms_per_eval", "full_busy_ms_per_eval"}
+             "open_ms_per_trip", "open_wall_ms_per_trip",
+             "open_busy_ms_per_trip", "full_wall_ms_per_eval",
+             "full_busy_ms_per_eval"}
     (row,) = rows
     assert set(row) == jax_keys | added
     assert row["lanes"] == 6 and 0 < row["winner_max_evals"] <= 160

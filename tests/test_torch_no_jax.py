@@ -10,7 +10,8 @@ benchmark's: ``tools/bench.py``, ``tools/error_ablation.py``,
 called once on a one-rank CPU group; ``tools/graft_entry.py``,
 ``tools/dist_check.py`` and the four drivers ``tools/bench_scaling.py``,
 ``tools/profile_search.py``, ``tools/bench_raw_draws.py`` and
-``tools/make_results.py``), loads the shipped
+``tools/make_results.py``; ``tools/trip_check.py`` and
+``tools/hybrid_soak.py``, the L-BFGS trip's checks), loads the shipped
 surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
 the JAX package through the port, trains a surrogate for one epoch on the
 CPU and round-trips it through the checkpoint functions, and must find
@@ -43,7 +44,8 @@ for name in ("surrogate.train", "utils.checkpoint", "utils.logging_util",
              "tools.error_ablation", "parallel.mesh", "parallel.sharded",
              "tools.graft_entry", "tools.dist_check", "tools.bench_scaling",
              "tools.profile_search", "tools.bench_raw_draws",
-             "tools.make_results"):
+             "tools.make_results", "tools.trip_check",
+             "tools.hybrid_soak"):
     assert port.__name__ + "." + name in sys.modules, name
 import torch
 from option_pricing_ffn_lbfgs_tpu_torch.tools import bench
