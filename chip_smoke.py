@@ -28,6 +28,13 @@ Phases:
      maxeval = 30) kernels against the plain pair; a corrupt history
      index raises naming its lane; each kernel timed against the plain
      version and its bound (ops/opcount.py);
+ 5c. K6/K7, the LM trip (csrc/lm_trip.cu): one trip from seeded random
+     states (tools/lm_trip_check.py: lanes 1, 15, 32, 1536, 1537; float
+     and double; accept and reject, every stopping test, bootstrap and
+     done lanes, no factor from a NaN in J and from a negative pivot,
+     non-finite residuals) against the plain pair on the card, in bits;
+     the polish's LM on K1<double> + K3 (512 surfaces x 3 starts, stage
+     A's maxiter 10) kernels against the plain pair, in bits;
   6. the slice, bench twin: tools/bench.py's 6 problem sets x 5 surfaces
      (bench.py's recipe, truths from the in-process host pricer), each
      calibrated once by calibrate_batch_mixed with 3 starts (the launch
@@ -38,10 +45,13 @@ Phases:
      _build/ is warm);
   7. the slice, compacted: 512 surfaces x 3 starts, so the polish waves run
      (accuracy pooled over four such sets); then torch.profiler over one
-     such call (device busy, K2 + K3 share);
+     such call (device busy, K2 + K3 share, K6/K7); an LM trip's ms at
+     1536 lanes and at a 32-lane wave against its evaluation alone;
   8. each kernel's time against its plain version and its bound (the
      least time for its operations or bytes, ops/opcount.py) at the main
-     path's widths;
+     path's widths; K6/K7 at 1536 and 32 lanes, kernel alone
+     (torch.profiler), K6 beside torch.linalg.cholesky_ex +
+     torch.cholesky_solve on the same damped matrices (library_ms);
   9. the generator: generate_dataset for 5000 surfaces at float64
      (K1<double>, N = 128) and with use_pallas (K1<float>), checked against
      the plain pricer, the Feller cap, the ranges and the noise; K1 timed
@@ -69,7 +79,8 @@ Phases:
      five rows beside the JAX package's record, calibrate_batch_mixed with
      the winner-only LM polish and with the Wolfe polish (POLISH_LBFGS;
      trips and walls on two of the sets), the host pricer, the Greeks and
-     the implied vols on the card against the CPU;
+     the implied vols on the card against the CPU; lm_minimize on one
+     bench surface at float32 and float64 (jacfwd Jacobian: K6/K7 alone);
  16. the sharded calibration and the drivers: tools/graft_entry.py's
      entry() against its plain version and its dry run in a fresh process
      (one NCCL rank); calibrate_sharded on 512 Feller-capped surfaces x 3
@@ -84,12 +95,15 @@ Phases:
      tools/bench_scaling.py at 1024 surfaces over 1 set, and
      tools/bench_raw_draws.py beside the JAX package's record.
 
-Every phase prints its wall. Each main-path run (phases 6, 9, 12, 13, 14,
-15, 16) is driven with the launch counts set to 0 just before it and read just
-after; every kernel it should run must have launched, and K4 and K5 must
-have launched as often as K2 at each precision (every L-BFGS trip is K4,
-K2, K5; tools/profile_search.py, which times K2 and K4 alone, excepted).
-Phase 2 fails on ptxas spill stores of K1, K4 or K5. The per-kernel
+Every phase prints its wall. Each main-path run (phases 6, 7, 9, 12, 13,
+14, 15, 16) is driven with the launch counts set to 0 just before it and
+read just after; every kernel it should run must have launched, K4 and K5
+must have launched as often as K2 at each precision (every L-BFGS trip is
+K4, K2, K5; tools/profile_search.py, which times K2 and K4 alone,
+excepted), and K6 and K7 as often as K3 (every LM trip is K6, K3, K7, the
+bootstrap trip too; phase 15's lm_minimize, whose Jacobian is jacfwd,
+excepted: there K6 = K7). Phase 2 fails on ptxas spill stores of K1, K4,
+K5, K6 or K7. The per-kernel
 record's "launches" is the sum over those runs, with the launches of phase
 16's sharded ranks read from their JSON lines. Any failure exits non-zero. The last line is the JSON device
 record; the line before it is the per-kernel JSON record.
@@ -136,6 +150,8 @@ def main():
         PARAM_NAMES, DHParams)
     from option_pricing_ffn_lbfgs_tpu_torch.ops import (
         cos_kernel, kernel_build, lbfgs_batched, loss_kernel, opcount)
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import (
+        levenberg_marquardt as lmq)
     from option_pricing_ffn_lbfgs_tpu_torch.ops.black_scholes import (
         implied_vol_surface)
     from option_pricing_ffn_lbfgs_tpu_torch.data.synthetic import (
@@ -159,12 +175,14 @@ def main():
     path_launches_last = {}   # the counts of the most recent main path
 
     all_counts = (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES,
-                  lbfgs_batched.LAUNCHES)
+                  lbfgs_batched.LAUNCHES, lmq.LAUNCHES)
 
-    def drive(label, fn, expect, trips=True):
+    def drive(label, fn, expect, trips=True, lm_k3=True):
         """Run one main path with the launch counts zeroed just before and
-        read just after; every kernel in ``expect`` must have launched, and
-        (``trips``) K4 and K5 as often as K2 at each precision."""
+        read just after; every kernel in ``expect`` must have launched,
+        (``trips``) K4 and K5 as often as K2 at each precision, K6 as often
+        as K7 at each precision and (``lm_k3``) their sum as often as
+        K3."""
         for counts in all_counts:
             for k in counts:
                 counts[k] = 0
@@ -179,6 +197,11 @@ def main():
             check(not trips or got["lbfgs_open" + sfx]
                   == got["lbfgs_update" + sfx] == got["cos_vg_loss" + sfx],
                   f"{label}: K4/K5{sfx} launches differ from K2{sfx}'s")
+            check(got["lm_open" + sfx] == got["lm_update" + sfx],
+                  f"{label}: K6{sfx} and K7{sfx} launches differ")
+        check(not lm_k3 or got["lm_open"] + got["lm_open_f64"]
+              == got["cos_vg_jac"], f"{label}: K6/K7 launches differ from "
+              "K3's")
         for k, v in got.items():
             path_launches[k] = path_launches.get(k, 0) + v
         path_launches_last.clear()
@@ -214,10 +237,11 @@ def main():
 
     # ----------------------------------------------------------- 2 build --
     lap(2)
-    build_s = kernel_build.build("cos_price", "cos_vg", "lbfgs_trip")
+    build_s = kernel_build.build("cos_price", "cos_vg", "lbfgs_trip",
+                                 "lm_trip")
     print(f"[2] build: {build_s:.1f} s (nvcc {' '.join(kernel_build.NVCC_FLAGS)})")
-    k1_spills, trip_spills = [], []
-    for name in ("cos_price", "cos_vg", "lbfgs_trip"):
+    k1_spills, trip_spills, lm_spills = [], [], []
+    for name in ("cos_price", "cos_vg", "lbfgs_trip", "lm_trip"):
         log = kernel_build.BUILD / f"{name}.log"
         if log.exists():
             entry = ""
@@ -231,6 +255,11 @@ def main():
                     if t:
                         kind = "float" if t.group(2) == "f" else "double"
                         entry = f" {t.group(1)}<{kind}, K={t.group(3)}>"
+                    t = re.search(r"(lm_(?:open|update)_kernel)I([fd])E",
+                                  m.group(1))
+                    if t:
+                        kind = "float" if t.group(2) == "f" else "double"
+                        entry = f" {t.group(1)}<{kind}>"
                 if "registers" in line or "spill" in line:
                     print(f"[2] {name}{entry}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores", line)
@@ -238,13 +267,18 @@ def main():
                     k1_spills.append(int(m.group(1)))
                 if m and name == "lbfgs_trip":
                     trip_spills.append(int(m.group(1)))
+                if m and name == "lm_trip":
+                    lm_spills.append(int(m.group(1)))
     print(f"[2] cos_price spill stores per entry: {k1_spills} B; "
           f"lbfgs_trip (K4/K5 x float/double x 1, 2, 4 coordinates a "
-          f"thread): {trip_spills} B")
+          f"thread): {trip_spills} B; lm_trip (K6/K7 x float/double): "
+          f"{lm_spills} B")
     check(k1_spills and not any(k1_spills),
           "K1 spills registers (ptxas reports spill stores)")
     check(trip_spills and not any(trip_spills),
           "K4/K5 spill registers (ptxas reports spill stores)")
+    check(lm_spills and not any(lm_spills),
+          "K6/K7 spill registers (ptxas reports spill stores)")
 
     # -------------------------------------------------------------- 3 K1 --
     lap(3)
@@ -805,10 +839,10 @@ def main():
     never = LBFGSConfig(maxiter=1 << 30, ftol=-float("inf"), gtol=-1.0,
                         max_restarts=1 << 30)
 
-    def alone_ms(kind, fn):
+    def alone_ms(kernel, fn):
         """The kernel alone: torch.profiler's device time over 20
-        launches (the events time the wrappers' host issue when that is
-        slower than the kernel)."""
+        launches of the kernel whose name holds ``kernel`` (the events time
+        the wrappers' host issue when that is slower than the kernel)."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -816,7 +850,7 @@ def main():
                 fn()
             torch.cuda.synchronize()
         return sum(dev_us(e) for e in prof.key_averages()
-                   if f"lbfgs_{kind}_kernel" in e.key
+                   if kernel in e.key
                    and "CUDA" in str(e.device_type)) / 20 / 1e3
 
     for n_lanes, dt, keep in ((1536, f32, True), (15, f64, True),
@@ -833,7 +867,7 @@ def main():
             f"[5b] lbfgs_open{sfx} L={n_lanes} (all opening, hist_len 10):",
             "lbfgs_open" + sfx, k4, lambda: lb.lbfgs_open_plain(st, never),
             opcount.lbfgs_open_work(st), dt, keep)
-        alone = {"open": alone_ms("open", k4)}
+        alone = {"open": alone_ms("lbfgs_open_kernel", k4)}
         st.starting[:] = torch.arange(n_lanes, device=dev) % 3 == 0
         st_p, x_try = lb.lbfgs_open_plain(st, never)
         st5 = trip_check.clone_state(st_p)
@@ -845,7 +879,7 @@ def main():
             "lbfgs_update" + sfx, k5,
             lambda: lb.lbfgs_update_plain(st_p, x_try, f_try, g_try, never),
             opcount.lbfgs_update_work(before, st5), dt, keep)
-        alone["update"] = alone_ms("update", k5)
+        alone["update"] = alone_ms("lbfgs_update_kernel", k5)
         check(not bool(st5.done.any()), "K5 timing state: a lane finished")
         print(f"[5b]   kernels alone (torch.profiler, 20 launches) L={n_lanes} "
               f"{dt}: K4 {alone['open']:.5f} ms, K5 {alone['update']:.5f} ms")
@@ -854,6 +888,44 @@ def main():
                 record["lbfgs_" + kind + sfx]["kernel_alone_ms"] = ms
     for key, err in trip_err.items():
         record[key]["max_abs_err"] = err
+
+    # --------------------------------------------------- 5c K6/K7, LM trip --
+    lap("5c")
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    for key in lmq.LAUNCHES:
+        record[key] = {"max_abs_err": 0.0}
+    for n_lanes in (1, 15, 32, 1536, 1537):
+        for dt in (f32, f64):
+            rep = lm_trip_check.check_trip(n_lanes, dt, dev, 9 + n_lanes)
+            sfx = "" if dt == f32 else "_f64"
+            for kind in ("open", "update"):
+                part = rep[kind]
+                key = f"lm_{kind}{sfx}"
+                record[key]["max_abs_err"] = max(record[key]["max_abs_err"],
+                                                 part["max_abs_err"])
+                bad = {k: v for k, v in part["bits_differ"].items() if v}
+                print(f"[5c] K{6 if kind == 'open' else 7} {key} "
+                      f"L={n_lanes}: entries whose bits differ "
+                      f"{bad or 'none'}; largest |kernel - plain| "
+                      f"{part['max_abs_err']:.3e}")
+            print(f"[5c]   done lanes changed {rep['done_lanes_changed']}, "
+                  f"live (kernel, plain) {rep['live']}"
+                  + (f"; branches {json.dumps(rep['coverage'])}"
+                     if n_lanes == 1536 else ""))
+            check(rep["ok"], f"K6/K7 disagree with the plain pair at "
+                  f"L={n_lanes} {dt}")
+            check(n_lanes != 1536 or all(rep["coverage"].values()),
+                  "the seeded LM states miss a branch")
+    # The polish's LM on K1<double> + K3: kernels against the plain pair.
+    lm_res, lm_jac, lm_x0 = lm_trip_check.polish_lanes(512, 5, dev)
+    stage_a = dataclasses.replace(calibrator.POLISH_LM, maxiter=10)
+    eng = lm_trip_check.check_engine(lm_res, lm_jac, lm_x0, stage_a)
+    print(f"[5c] LM engine on K1<double> + K3, 512 surfaces x 3 starts, "
+          f"maxiter 10, kernels vs plain pair: {json.dumps(eng)} (x in "
+          f"bits)")
+    check(eng["n_evals_equal"] and eng["n_iters_equal"]
+          and eng["converged_equal"] and eng["x_bits_differ"] == 0,
+          "the LM engine on K6/K7 departs from the plain pair")
 
     # ------------------------------------------------- 6 slice, bench twin --
     lap(6)
@@ -966,7 +1038,7 @@ def main():
         return out, timer.ms
 
     timed(slice_cfg)                   # warm-up at 1536 lanes
-    out, wave_ms = timed(slice_cfg)
+    out, wave_ms = drive(7, lambda: timed(slice_cfg), all4)
     waves = list(calibrator.WAVE_LANES)
     out1, one_ms = timed(one_stage)
     _, wave_ms_b = timed(slice_cfg)
@@ -1006,16 +1078,32 @@ def main():
     busy = sum(dev_us(e) for e in on_dev) / 1e3
     vg = sum(dev_us(e) for e in on_dev if "cos_vg_kernel" in e.key) / 1e3
     k1 = sum(dev_us(e) for e in on_dev if "cos_price_kernel" in e.key) / 1e3
+    k67 = sum(dev_us(e) for e in on_dev if "lm_open_kernel" in e.key
+              or "lm_update_kernel" in e.key) / 1e3
     n_ops = sum(e.count for e in on_dev)
     unprof = min(wave_ms, wave_ms_b)
     print(f"[7] profile of one compacted 512 x 3 call (profiled wall "
           f"{prof_ms:.2f} ms; unprofiled {unprof:.2f} ms): {n_ops} device "
           f"kernels and copies, busy {busy:.2f} ms = {100 * busy / unprof:.1f} % of the "
           f"unprofiled wall; K2 + K3 (cos_vg_kernel) {vg:.2f} ms = "
-          f"{100 * vg / unprof:.1f} %; K1 (cos_price_kernel) {k1:.2f} ms")
+          f"{100 * vg / unprof:.1f} %; K1 (cos_price_kernel) {k1:.2f} ms; "
+          f"K6 + K7 (lm_open/lm_update_kernel) {k67:.2f} ms")
     check(vg > 0, "the profile shows no cos_vg_kernel time")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
         print(f"[7]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    # An LM trip of the polish (K6, K1<double> and K3 with their assembly,
+    # K7, the read): stage A's 1536 lanes, and 32 lanes at a wave's budget
+    # of 16 iterations, against the evaluation alone (CUDA events).
+    for n_surf, n_starts, lm_cfg in (
+            (512, 3, stage_a),
+            (32, 1, dataclasses.replace(calibrator.POLISH_LM, maxiter=16))):
+        tm = lm_trip_check.trip_ms(
+            *lm_trip_check.polish_lanes(n_surf, 5, dev, n_starts), lm_cfg)
+        print(f"[7] LM trip at {tm['lanes']} lanes ({tm['trips']} trips): "
+              f"{tm['trip_ms']:.3f} ms a trip, of which the evaluation "
+              f"(K1<double> + K3 and their assembly) {tm['evaluation_ms']:.3f}"
+              f" ms, K6 + K7 + the read {tm['rest_ms']:.3f} ms (CUDA "
+              f"events)")
     args, prices, feller_ok = problem_set(512, 2026 + 100)
     with CudaTimer() as timer:
         out = calibrate(args, 100)
@@ -1076,6 +1164,64 @@ def main():
             kernel_vs_plain(f"[8] {name} L={n_lanes} rows={n_lanes * 15} "
                             f"N={n_terms}:", name, kern, plain, work, dt,
                             keep=name in keep)
+
+    # K6/K7 against the plain pair, their bound and (K6) the library route,
+    # on the polish's state after its bootstrap trip (every lane live, the
+    # K3 Jacobian) under a configuration whose stops never fire. K6
+    # rewrites the same fields each launch; K7 is timed with the cost set
+    # back to +inf before each launch (one copy of L values), so that every
+    # launch accepts and copies x, r and J as the first did.
+    never = dataclasses.replace(
+        calibrator.POLISH_LM, maxiter=1 << 30, ftol=-float("inf"),
+        gtol=-1.0, xtol=-1.0, lambda_max=float("inf"), cost_target=0.0)
+    for n_surf, n_starts, dt, keep in ((512, 3, f64, True),
+                                       (512, 3, f32, True),
+                                       (32, 1, f64, False)):
+        res_fn, jac_fn, x_lm = lm_trip_check.polish_lanes(n_surf, 5, dev,
+                                                          n_starts)
+        r0 = res_fn(x_lm)
+        st = lmq.init_state(x_lm.to(dt), r0.shape[-1], never)
+        st.r.copy_(r0)
+        st.J.copy_(jac_fn(x_lm))
+        st.cost.copy_(lmq.trial_cost(st.r))
+        n_lanes, sfx = x_lm.shape[0], ("" if dt == f32 else "_f64")
+        status = torch.zeros(1, dtype=torch.int32, device=dev)
+        k6 = lambda: lmq.lm_open(st, never, status)
+        kernel_vs_plain(
+            f"[8] lm_open{sfx} L={n_lanes} m=17 d=13 (all live):",
+            "lm_open" + sfx, k6, lambda: lmq.lm_open_plain(st, never),
+            opcount.lm_open_work(st), dt, keep)
+        alone = {"open": alone_ms("lm_open_kernel", k6)}
+        A, g = lmq.damped_normal_equations(st.J, st.r, st.lam)
+        lib = lambda: torch.cholesky_solve(
+            g[..., None], torch.linalg.cholesky_ex(A)[0])
+        lib_ms = min(cuda_time_ms(lib), cuda_time_ms(lib))
+        x_try = lmq.lm_open(st, never, status)
+        r_try = res_fn(x_try.to(f64)).to(dt)
+        j_try = jac_fn(x_try.to(f64)).to(dt)
+        inf = torch.full_like(st.cost, float("inf"))
+        st.cost.copy_(inf)
+        before = lm_trip_check.clone_state(st)
+
+        def k7():
+            st.cost.copy_(inf)
+            lmq.lm_update(st, x_try, r_try, j_try, never, status)
+        kernel_vs_plain(
+            f"[8] lm_update{sfx} L={n_lanes} (all accept):",
+            "lm_update" + sfx, k7,
+            lambda: lmq.lm_update_plain(before, x_try, r_try, j_try, never),
+            opcount.lm_update_work(before, r_try), dt, keep)
+        alone["update"] = alone_ms("lm_update_kernel", k7)
+        check(not bool(st.done.any()), "K7 timing state: a lane finished")
+        print(f"[8]   K6/K7 alone (torch.profiler, 20 launches) L={n_lanes} "
+              f"{dt}: K6 {alone['open']:.5f} ms, K7 {alone['update']:.5f} "
+              f"ms; torch.linalg.cholesky_ex + torch.cholesky_solve on the "
+              f"same damped matrices {lib_ms:.4f} ms (the factor and the "
+              f"solve only: not J^T J, the damping, the checks or x_try)")
+        if keep:
+            for kind, ms in alone.items():
+                record["lm_" + kind + sfx]["kernel_alone_ms"] = ms
+            record["lm_open" + sfx]["library_ms"] = lib_ms
 
     # ------------------------------------------------------- 9 generator --
     lap(9)
@@ -1540,6 +1686,36 @@ def main():
               f"set {tr_}; walls per set {[round(w, 2) for w in w_]} ms "
               f"(CUDA events; search included)")
 
+    # lm_minimize, the engine's one-lane entry, on the first bench surface
+    # at float32 and float64 from its type-0 start: its Jacobian is jacfwd
+    # of the plain residuals, so K6/K7 run without K3.
+    from option_pricing_ffn_lbfgs_tpu_torch.ops.levenberg_marquardt import (
+        lm_minimize)
+    a0 = sets15[0][0]
+
+    def one_lane_lm():
+        out_ = {}
+        for dt in (f32, f64):
+            one = [a[:1].to(dt) if a.is_floating_point() else a[:1]
+                   for a in a0[:5]]
+            res1 = make_residual_fn(one[0], 0.03, *one[1:],
+                                    CalibrationConfig())
+            x0_1 = inverse_transform(torch.tensor(GUESS0, dtype=dt,
+                                                  device=dev))
+            out_[dt] = (float((res1(x0_1[None]) ** 2).sum()),
+                        lm_minimize(lambda x: res1(x[None])[0], x0_1,
+                                    dataclasses.replace(
+                                        calibrator.POLISH_LM, maxiter=20)))
+        return out_
+    lm1 = drive(15, one_lane_lm, ["lm_open", "lm_update", "lm_open_f64",
+                                  "lm_update_f64"], lm_k3=False)
+    for dt, (f0, r1) in lm1.items():
+        print(f"[15] lm_minimize {dt}, bench surface 0 from GUESS0: cost "
+              f"{f0:.4e} -> {float(r1.f):.4e} in {int(r1.n_iters)} trips, "
+              f"converged {bool(r1.converged)}")
+        check(bool(torch.isfinite(r1.x).all()) and float(r1.f) < f0,
+              f"lm_minimize {dt} did not descend")
+
     # The host pricer, the Greeks and the implied vols: card against CPU.
     true0, spots0 = tbench.truths(0), np.full(5, 100.0)
     host = drive(15, lambda: price_truth_subprocess(
@@ -1759,9 +1935,13 @@ def main():
             "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:194",
         "lbfgs_update_f64":
             "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:194",
+        # No Pallas twin: the body of JAX's LM lax.while_loop (:257-314),
+        # its vmapped cho_factor / cho_solve at :267-268.
+        **{k: "option_pricing_ffn_lbfgs_tpu/ops/levenberg_marquardt.py:257"
+           for k in lmq.LAUNCHES},
     }
     sources = {"cos_price": "cos_price.cu", "cos_vg": "cos_vg.cu",
-               "lbfgs": "lbfgs_trip.cu"}
+               "lbfgs": "lbfgs_trip.cu", "lm_": "lm_trip.cu"}
     kernels = [{"name": name, "route": "cuda",
                 "source": src + next(f for k, f in sources.items()
                                      if name.startswith(k)),

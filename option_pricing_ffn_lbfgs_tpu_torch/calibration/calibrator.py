@@ -168,14 +168,14 @@ def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
 calibrate_batch_fused = calibrate_batch
 
 
-def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
-                        lane_mkt, x0, lam0, config: CalibrationConfig,
-                        polish: LMConfig):
-    """Batched LM over flat lanes: float64 residuals from K1<double>, the
-    float32 Jacobian from K3. Lane tensors are float64 ``[L, ...]``."""
+def polish_residual_and_jacobian(lane_spots, rate, lane_strikes, lane_mats,
+                                 lane_call, lane_mkt,
+                                 config: CalibrationConfig):
+    """``(residual_fn, jac_fn)`` of the LM polish over flat lanes: float64
+    residuals from K1<double>, the float32 Jacobian from K3 (cast up by
+    the engine). Lane tensors are float64 ``[L, ...]``."""
     f32 = torch.float32
     pc = config.pricer
-    n_opt = lane_mkt.shape[-1]
 
     def residual_fn(x):
         params = transform(x)
@@ -188,8 +188,20 @@ def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
     jac32 = make_batch_residual_jacobian(
         lane_spots.to(f32), lane_strikes.to(f32), lane_mats.to(f32),
         lane_call, lane_mkt.to(f32), rate, config)
-    res = lm_minimize_batched(residual_fn, x0, polish,
-                              jac_fn=lambda x: jac32(x.to(f32)), lam0=lam0)
+    return residual_fn, lambda x: jac32(x.to(f32))
+
+
+def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
+                        lane_mkt, x0, lam0, config: CalibrationConfig,
+                        polish: LMConfig):
+    """Batched LM over flat lanes: float64 residuals from K1<double>, the
+    float32 Jacobian from K3. Lane tensors are float64 ``[L, ...]``."""
+    residual_fn, jac_fn = polish_residual_and_jacobian(
+        lane_spots, rate, lane_strikes, lane_mats, lane_call, lane_mkt,
+        config)
+    res = lm_minimize_batched(residual_fn, x0, polish, jac_fn=jac_fn,
+                              lam0=lam0)
+    n_opt = lane_mkt.shape[-1]
     params_vec = transform(res.x)
     model = lane_mkt * (1.0 + res.r[:, :n_opt] * math.sqrt(n_opt))
     return res, params_vec, model

@@ -6,9 +6,10 @@ Each ``csrc/<name>.cu`` compiles, at first use, into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-plus a file's own flags from ``FILE_FLAGS`` (``lbfgs_trip.cu``, the
-L-BFGS trip, is built with ``-fmad=false`` so that its decisions round as
-eager PyTorch's ``a * b + c`` does), and is loaded with ``ctypes``. No
+plus a file's own flags from ``FILE_FLAGS`` (``lbfgs_trip.cu`` and
+``lm_trip.cu``, the L-BFGS and LM trips, are built with ``-fmad=false`` so
+that their decisions round as eager PyTorch's ``a * b + c`` does), and is
+loaded with ``ctypes``. No
 PyTorch header is included, so a build takes seconds rather than minutes,
 and no ``--use_fast_math``: the float64 kernels need the accurate
 exp/log/sin/cos/atan2. A library is rebuilt when
@@ -31,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-FILE_FLAGS = {"lbfgs_trip": ["-fmad=false"]}
+FILE_FLAGS = {"lbfgs_trip": ["-fmad=false"], "lm_trip": ["-fmad=false"]}
 
 _LIBS = {}
 _ENTRIES = {}

@@ -25,6 +25,14 @@ count each input byte read once and each output byte written once:
     where the lane stored a pair), and the arithmetic as the kernels write
     it, per coordinate and per pair. Both are bound by bytes by two orders
     of magnitude.
+  * K6/K7 (the LM trip, ``csrc/lm_trip.cu``): the same, from the state
+    the launch sees (done lanes read their flag, and K6 copies their x; a
+    live lane's K6 reads its m x d Jacobian and m residuals; K7 copies
+    x_try, r_try and j_try into the state where the step is accepted), and
+    the arithmetic as the kernels write it: the m d^2 products and sums of
+    J^T J, the factor's columns up to the first bad pivot, the two
+    substitutions of a lane whose factor completes. Both are bound by
+    bytes.
 
 ``bound_ms`` is the larger of operations over the card's peak rate for
 their type and bytes over its memory rate (NVIDIA H100 SXM data sheet:
@@ -174,6 +182,62 @@ def lbfgs_update_work(before, after) -> Dict[str, float]:
                           + 4 * d * t + 10 * t + 28 + 5)    # writes
               + pairs * (2 * d * t + t))          # history row, rho
     ops = n_live * (13 * d + 60)
+    return {"ops": ops, "bytes": nbytes}
+
+
+def _cholesky_ops(d: int, columns: int, failed: bool) -> int:
+    """Operations of a factor that completes ``columns`` columns (each
+    row's inner products, the pivot's square root, the divisions), and of
+    the failing column's inner products if ``failed``."""
+    ops = sum(2 * j * (d - j) + 1 + (d - j - 1) for j in range(columns))
+    return ops + (2 * columns * (d - columns) if failed else 0)
+
+
+def lm_open_work(st) -> Dict[str, float]:
+    """Operations and bytes of one K6 launch on the state ``st``
+    (``ops/levenberg_marquardt.py::_State``), before the launch. A live
+    lane's factor is counted up to its first pivot that is not positive
+    and finite, as the kernel stops there."""
+    from .levenberg_marquardt import cholesky, damped_normal_equations
+    L, d = st.x.shape
+    m = st.r.shape[-1]
+    t = st.x.element_size()
+    live = ~st.done
+    n_live = int(live.sum())
+    C, ok = cholesky(damped_normal_equations(st.J[live], st.r[live],
+                                             st.lam[live])[0])
+    root = torch.diagonal(C, dim1=-2, dim2=-1)
+    bad = ~(torch.isfinite(root) & (root > 0))
+    first_bad = torch.argmax(bad.to(torch.int8), dim=-1)
+    ops = n_live * (2 * m * d * d + 2 * m * d     # J^T J, J^T r
+                    + d * (d - 1) + 3 * d         # damping
+                    + 6 * d)                      # x + dx, two max |.|
+    for c, good in zip(first_bad.tolist(), ok.tolist()):
+        ops += (_cholesky_ops(d, d, False) + 2 * d * d if good
+                else _cholesky_ops(d, c, True))
+    nbytes = (L * (1 + 2 * d * t)                  # done, x, x_try
+              + n_live * (m * d * t + m * t + t    # J, r, lam
+                          + 2 * t)                 # dx_max, g_max
+              + 4)                                 # live count
+    return {"ops": ops, "bytes": nbytes}
+
+
+def lm_update_work(st, r_try) -> Dict[str, float]:
+    """Operations and bytes of one K7 launch on the state ``st`` before
+    the launch and the trial residuals ``r_try`` (which lanes accept)."""
+    from .levenberg_marquardt import trial_cost
+    L, d = st.x.shape
+    m = st.r.shape[-1]
+    t = st.x.element_size()
+    live = ~st.done
+    n_live = int(live.sum())
+    n_acc = int((live & (trial_cost(r_try) < st.cost)).sum())
+    nbytes = (L * 1 + 4                            # done, live count
+              + n_live * (m * t + d * t + 4 * t + 9    # reads
+                          + 2 * t + 10)                # writes
+              + n_acc * 2 * (d * t + m * d * t)    # x_try, j_try; x, r, J
+              + n_acc * m * t)
+    ops = n_live * (2 * m + 2 * d + 18)
     return {"ops": ops, "bytes": nbytes}
 
 

@@ -20,12 +20,15 @@ each run prints
      output bytes (equal hashes
      across the two trees: identical bits; otherwise the largest relative
      difference is printed);
-  2. the mean pricing error and the wall (CUDA events) of
-     ``calibrate_batch_mixed`` on 512 Feller-capped surfaces x 3 starts,
-     over 8 (problem, start) seed pairs;
+  2. the mean pricing error, the wall (CUDA events) and the LM trips (K3
+     launches) of ``calibrate_batch_mixed`` on 512 Feller-capped surfaces
+     x 3 starts, over 8 (problem, start) seed pairs, and its winners;
   3. the hybrid on four slices of 512 generated surfaces: wall, L-BFGS
-     trips, error;
+     and LM trips, error;
   4. the bench twin (6 sets x 5 surfaces): host wall per surface;
+  5. an LM trip of the polish (``calibrator._polish_lanes_fused``) at
+     1536 lanes (stage A's maxiter 10) and at 32 lanes (a wave's 16):
+     ms a trip (CUDA events over the whole polish, best of three);
 
 and the lines marked ``[ab]`` compare the sides over all their runs. With
 ``--kernels`` each run stops after part 1.
@@ -86,7 +89,8 @@ def measure(outputs: str, kernels_only: bool) -> dict:
 
     dev, f64 = torch.device("cuda"), torch.float64
     out = {"kernels": {}, "device": {}, "hashes": {}, "means": [],
-           "walls": [], "hybrid": [], "twin": 0.0}
+           "walls": [], "lm_trips": [], "hybrid": [], "twin": 0.0,
+           "lm_trip_ms": {}}
 
     def kernel_ms(fn, n=20):
         """Device ms of one launch of the K1/K2/K3 kernel ``fn`` launches
@@ -151,8 +155,8 @@ def measure(outputs: str, kernels_only: bool) -> dict:
             saved[f"{key} #{i}"] = r
         print(f"[1] {key}: {ms:.4f} ms (kernel alone {dev_ms} ms), "
               f"outputs {out['hashes'][key]}", flush=True)
-    np.savez(outputs, **saved)
     if kernels_only:
+        np.savez(outputs, **saved)
         return out
 
     cfg = CalibrationConfig(search_impl="pallas", polish_impl="pallas",
@@ -190,15 +194,20 @@ def measure(outputs: str, kernels_only: bool) -> dict:
     calibrate(sets[100][0], 100)
     for pseed, (args, prices) in sets.items():
         for sseed in (100, 7):
+            k3 = loss_kernel.LAUNCHES["cos_vg_jac"]
             with CudaTimer() as timer:
                 res = calibrate(args, sseed)
             e = err_pct(res, prices)
             out["means"].append(float(e.mean()))
             out["walls"].append(timer.ms)
+            out["lm_trips"].append(loss_kernel.LAUNCHES["cos_vg_jac"] - k3)
+            saved[f"winners {pseed} {sseed} #0"] = res.x.cpu().numpy()
+            saved[f"errors {pseed} {sseed} #0"] = e
             print(f"[2] problem 2026+{pseed} starts {sseed}: mean "
                   f"{e.mean():.5f} %, median {np.median(e):.5f} %, above "
                   f"0.1 %: {int((e > 0.1).sum())}, max {e.max():.4f} %, "
-                  f"wall {timer.ms:.2f} ms", flush=True)
+                  f"wall {timer.ms:.2f} ms, LM trips "
+                  f"{out['lm_trips'][-1]}", flush=True)
 
     # 3. the hybrid on four slices of 512 generated surfaces
     ds = port.generate_dataset(torch.Generator(dev).manual_seed(9),
@@ -214,16 +223,18 @@ def measure(outputs: str, kernels_only: bool) -> dict:
             port.hybrid_calibrate_batch_mixed(
                 surrogate, *(a[:8] if torch.is_tensor(a) else a for a in h))
         before = loss_kernel.LAUNCHES["cos_vg_loss"]
+        k3 = loss_kernel.LAUNCHES["cos_vg_jac"]
         with CudaTimer() as timer:
             res = port.hybrid_calibrate_batch_mixed(surrogate, *h)
         trips = loss_kernel.LAUNCHES["cos_vg_loss"] - before
+        lm_trips = loss_kernel.LAUNCHES["cos_vg_jac"] - k3
         e = err_pct(res, h[-1].cpu().numpy())
         out["hybrid"].append({"wall": timer.ms, "trips": trips,
-                              "mean": float(e.mean())})
+                              "lm_trips": lm_trips, "mean": float(e.mean())})
         print(f"[3] hybrid surfaces {lo}..{lo + 511}: wall {timer.ms:.2f} "
               f"ms, {trips} L-BFGS trips ({timer.ms / trips:.3f} ms a "
-              f"trip), mean {e.mean():.5f} %, max {e.max():.5f} %",
-              flush=True)
+              f"trip), {lm_trips} LM trips, mean {e.mean():.5f} %, max "
+              f"{e.max():.5f} %", flush=True)
 
     # 4. the bench twin
     twin = [problem_set(5, 2026 + i) for i in range(6)]
@@ -235,6 +246,32 @@ def measure(outputs: str, kernels_only: bool) -> dict:
     out["twin"] = (time.perf_counter() - t0) / 30 * 1e3
     print(f"[4] bench twin: {out['twin']:.2f} ms a surface, mean "
           f"{np.concatenate(errs).mean():.5f} %", flush=True)
+
+    # 5. an LM trip of the polish from the starts of initial_guesses on
+    # the first 512-surface set
+    from option_pricing_ffn_lbfgs_tpu_torch.calibration.initial_guess import (
+        initial_guesses)
+    args, _ = sets[100]
+    x0 = initial_guesses(3, torch.Generator().manual_seed(5), args[0],
+                         args[1], args[2], args[4]).reshape(-1, 13)
+    rep = lambda a: torch.repeat_interleave(a, 3, dim=0)
+    lanes = [rep(a) for a in args]
+    pcfg = calibrator._polish_pricer_config(cfg)
+    for n_lanes, maxiter in ((1536, 10), (32, 16)):
+        lm_cfg = dataclasses.replace(polish, maxiter=maxiter)
+        per_trip = []
+        for _ in range(4):                   # the first warms up
+            with CudaTimer() as timer:
+                res, _, _ = calibrator._polish_lanes_fused(
+                    lanes[0][:n_lanes], 0.03,
+                    *(a[:n_lanes] for a in lanes[1:5]), x0[:n_lanes], None,
+                    pcfg, lm_cfg)
+            per_trip.append(timer.ms / int(res.n_evals.max()))
+        out["lm_trip_ms"][str(n_lanes)] = min(per_trip[1:])
+        print(f"[5] LM polish trip at {n_lanes} lanes: "
+              f"{min(per_trip[1:]):.4f} ms ({int(res.n_evals.max())} trips)",
+              flush=True)
+    np.savez(outputs, **saved)
     return out
 
 
@@ -295,6 +332,20 @@ def main(argv=None):
                   f"{sorted(hashes['parent'])}, this {sorted(hashes['this'])})")
     if kernels_only:
         return
+    for pseed in (100, 101, 102, 103):
+        for sseed in (100, 7):
+            key = f"{pseed} {sseed} #0"
+            wx = {s: o[f"winners {key}"] for s, o in outs.items()}
+            we = {s: o[f"errors {key}"] for s, o in outs.items()}
+            print(f"[ab] winners 2026+{pseed} starts {sseed}: "
+                  + ("identical bits" if np.array_equal(wx["this"],
+                                                        wx["parent"])
+                     else f"x largest relative difference "
+                     f"{_rel(wx['this'], wx['parent']):.3e}")
+                  + f"; per-surface error % largest difference "
+                  f"{np.abs(we['this'] - we['parent']).max():.3e}, surfaces "
+                  f"whose error moved by more than 1e-4 % "
+                  f"{int((np.abs(we['this'] - we['parent']) > 1e-4).sum())}")
     for side, rs in runs.items():
         walls = [w for r in rs for w in r["walls"]]
         means = rs[0]["means"]
@@ -303,8 +354,12 @@ def main(argv=None):
               f"runs above 0.03 %: {sum(m > 0.03 for m in means)}; wall "
               f"median {np.median(walls):.2f} ms over {len(walls)} calls "
               f"(min {min(walls):.2f}, max {max(walls):.2f})")
+        print(f"[ab] {side} LM trips per 512 x 3 call {rs[0]['lm_trips']}; "
+              f"LM polish ms a trip (1536 / 32 lanes) "
+              f"{[r['lm_trip_ms'] for r in rs]}")
         print(f"[ab] {side} hybrid: trips per slice "
-              f"{[h['trips'] for h in rs[0]['hybrid']]}, walls "
+              f"{[h['trips'] for h in rs[0]['hybrid']]}, LM trips "
+              f"{[h['lm_trips'] for h in rs[0]['hybrid']]}, walls "
               f"{[[round(h['wall'], 2) for h in r['hybrid']] for r in rs]} "
               f"ms, mean error {[round(h['mean'], 5) for h in rs[0]['hybrid']]}"
               f" %; bench twin {[round(r['twin'], 2) for r in rs]} ms a "

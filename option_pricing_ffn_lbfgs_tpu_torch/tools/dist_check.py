@@ -60,6 +60,7 @@ import torch.distributed as dist
 
 from ..calibration.calibrator import BatchCalibration
 from ..ops import cos_kernel, lbfgs_batched, loss_kernel
+from ..ops import levenberg_marquardt
 from ..parallel.mesh import (distributed_init, free_port, local_device,
                               make_mesh)
 from ..parallel.sharded import calibrate_sharded
@@ -197,7 +198,7 @@ def ffn_grad_error(got: dict, ref: dict) -> float:
 
 def launch_counts() -> dict:
     return {**cos_kernel.LAUNCHES, **loss_kernel.LAUNCHES,
-            **lbfgs_batched.LAUNCHES}
+            **lbfgs_batched.LAUNCHES, **levenberg_marquardt.LAUNCHES}
 
 
 def main(rank: int, world: int, coordinator: str, device: str,
@@ -217,7 +218,7 @@ def main(rank: int, world: int, coordinator: str, device: str,
         run(dataclasses.replace(prob.config, lbfgs=dataclasses.replace(
             prob.config.lbfgs, maxiter=2)))
         for counts in (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES,
-                       lbfgs_batched.LAUNCHES):
+                       lbfgs_batched.LAUNCHES, levenberg_marquardt.LAUNCHES):
             for k in counts:
                 counts[k] = 0
         synchronize(dev)

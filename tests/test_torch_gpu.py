@@ -778,3 +778,88 @@ def test_lbfgs_engine_raises_on_what_the_kernels_do_not_take(cuda):
         lb.lbfgs_minimize_batched(
             lambda x: ((x * x).sum(-1), 2 * x), x0)
     assert lb.LAUNCHES == before
+
+
+# K6/K7, the LM trip (csrc/lm_trip.cu), against the plain pair on the card
+# (tools/lm_trip_check.py): every state field and x_try equal in bits (any
+# NaN equal to any NaN), done lanes unchanged, the live count exact; at
+# 1536 lanes every branch is taken.
+@pytest.mark.parametrize("n_lanes", [1, 15, 32, 1536, 1537])
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lm_trip_matches_plain(cuda, dt, n_lanes):
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    rep = lm_trip_check.check_trip(n_lanes, dt, cuda, 9 + n_lanes)
+    assert rep["ok"], rep
+    if n_lanes == 1536:
+        assert all(v > 0 for v in rep["coverage"].values()), rep["coverage"]
+
+
+def test_lm_engine_kernels_vs_plain(cuda):
+    """The polish's LM (K1<double> residuals, the K3 Jacobian) on 512
+    surfaces x 3 starts at stage A's maxiter 10: K6/K7 against the plain
+    pair run on the card, equal counts on every lane and x in bits."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    r, j, x0 = lm_trip_check.polish_lanes(512, 5, cuda)
+    rep = lm_trip_check.check_engine(
+        r, j, x0, dataclasses.replace(calibrator.POLISH_LM, maxiter=10))
+    assert rep["n_evals_equal"] and rep["n_iters_equal"], rep
+    assert rep["converged_equal"] and rep["x_bits_differ"] == 0, rep
+    assert rep["trips"] == 11, rep
+
+
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lm_minimize_kernels_vs_plain(cuda, dt):
+    """lm_minimize's engine on a linear least-squares batch at either
+    precision: K6/K7 against the plain pair, counts equal and x in bits."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import (
+        levenberg_marquardt as lm)
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    rng = np.random.default_rng(2)
+    A = torch.tensor(rng.normal(size=(64, 17, 13)), dtype=dt, device=cuda)
+    b = torch.tensor(rng.normal(size=(64, 17)), dtype=dt, device=cuda)
+    x0 = torch.tensor(rng.normal(size=(64, 13)), dtype=dt, device=cuda)
+    before = dict(lm.LAUNCHES)
+    rep = lm_trip_check.check_engine(
+        lambda x: (A * x[:, None, :]).sum(-1) - b, lambda x: A, x0,
+        port.LMConfig(maxiter=12))
+    assert rep["n_evals_equal"] and rep["x_bits_differ"] == 0, rep
+    key = "" if dt == F32 else "_f64"
+    assert (lm.LAUNCHES["lm_open" + key] - before["lm_open" + key]
+            == lm.LAUNCHES["lm_update" + key] - before["lm_update" + key]
+            == rep["trips"])
+
+
+def test_lm_launches_equal_k3(cuda):
+    """calibrate_batch_mixed on 8 surfaces x 3 starts: every LM trip of the
+    float64 polish launches K6, K3 and K7 once, the bootstrap trip too."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import levenberg_marquardt
+    rng = np.random.default_rng(1)
+    true = rng.uniform(LO, HI, (8, 13))
+    data = [torch.full((8,), 100.0, dtype=F64),
+            torch.tensor(np.tile(STRIKES, (8, 1))),
+            torch.tensor(np.tile(MATS, (8, 1))),
+            torch.ones((8, 15), dtype=torch.bool)]
+    prices = port.price_surfaces(torch.tensor(true), data[0], 0.03, *data[1:])
+    counts = (loss_kernel.LAUNCHES, levenberg_marquardt.LAUNCHES)
+    before = {k: v for c in counts for k, v in c.items()}
+    port.calibrate_batch_mixed(data[0].to(cuda), 0.03,
+                               *(a.to(cuda) for a in data[1:]),
+                               prices.to(cuda),
+                               torch.Generator().manual_seed(0))
+    got = {k: v - before[k] for c in counts for k, v in c.items()}
+    k3 = got["cos_vg_jac"]
+    assert k3 > 0
+    assert got["lm_open_f64"] == got["lm_update_f64"] == k3
+    assert got["lm_open"] == got["lm_update"] == 0
+
+
+def test_lm_engine_raises_on_what_the_kernels_do_not_take(cuda):
+    """On the card there is no plain fallback: 33 coordinates (the kernels
+    take d <= 32) raise before any launch."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import (
+        levenberg_marquardt as lm)
+    x0 = torch.zeros(3, lm.MAX_DIM + 1, dtype=F64, device=cuda)
+    before = dict(lm.LAUNCHES)
+    with pytest.raises(ValueError, match="d <= 32"):
+        lm.lm_minimize_batched(lambda x: x - 1.0, x0)
+    assert lm.LAUNCHES == before

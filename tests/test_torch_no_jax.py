@@ -11,7 +11,8 @@ called once on a one-rank CPU group; ``tools/graft_entry.py``,
 ``tools/dist_check.py`` and the four drivers ``tools/bench_scaling.py``,
 ``tools/profile_search.py``, ``tools/bench_raw_draws.py`` and
 ``tools/make_results.py``; ``tools/trip_check.py`` and
-``tools/hybrid_soak.py``, the L-BFGS trip's checks), loads the shipped
+``tools/hybrid_soak.py``, the L-BFGS trip's checks; ``tools/lm_trip_check.py``,
+the LM trip's, with ``lm_minimize`` called once on the CPU), loads the shipped
 surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
 the JAX package through the port, trains a surrogate for one epoch on the
 CPU and round-trips it through the checkpoint functions, and must find
@@ -45,7 +46,7 @@ for name in ("surrogate.train", "utils.checkpoint", "utils.logging_util",
              "tools.graft_entry", "tools.dist_check", "tools.bench_scaling",
              "tools.profile_search", "tools.bench_raw_draws",
              "tools.make_results", "tools.trip_check",
-             "tools.hybrid_soak"):
+             "tools.hybrid_soak", "tools.lm_trip_check"):
     assert port.__name__ + "." + name in sys.modules, name
 import torch
 from option_pricing_ffn_lbfgs_tpu_torch.tools import bench
@@ -62,6 +63,10 @@ r = port.lbfgs_minimize(lambda x: ((x - 1.0) ** 2).sum(),
                         torch.zeros(3, dtype=torch.float64),
                         port.LBFGSConfig(flat=False))
 assert bool(r.converged)
+from option_pricing_ffn_lbfgs_tpu_torch.ops.levenberg_marquardt import (
+    lm_minimize)
+r = lm_minimize(lambda x: x - 1.0, torch.zeros(3, dtype=torch.float64))
+assert bool(r.converged) and float(r.f) < 1e-20
 model = port.load_default_model()
 ds = port.load_dataset(sys.argv[1], device="cpu")
 assert ds.n_samples == 2 and model.model.head.out_features == 13
