@@ -23,11 +23,17 @@ Phases:
  5b. K4/K5, the L-BFGS trip (csrc/lbfgs_trip.cu): one trip from seeded
      random states (tools/trip_check.py: lanes 1, 15, 1536, 1537; float
      and double; every stage, hist_len 0..10, wrapped heads, bootstrap and
-     done lanes, non-finite evaluations) against the plain pair on the
-     card; the whole engine at float64 on K2<double> (1536 lanes,
-     maxeval = 30) kernels against the plain pair; a corrupt history
-     index raises naming its lane; each kernel timed against the plain
-     version and its bound (ops/opcount.py);
+     done lanes, non-finite evaluations; and at 1537 lanes with d = 30
+     and 64) against the plain pair on the card; the fused K4/K5 of the
+     calibration objective against their fused plain pair in bits (lanes
+     1, 15, 1536, 1537 with 15 or 17 options, float and double; invalid
+     price rows, NaN/inf prices and gradient sums, each Feller factor on
+     and off, bootstrap and done lanes); a whole float32 search (1536
+     lanes, maxeval 160) on fused K4, K2, fused K5 against the fused plain
+     pair in bits; the unfused engine at float64 on K2<double> (1536
+     lanes, maxeval = 30) kernels against the plain pair; a corrupt
+     history index raises naming its lane; each unfused kernel timed
+     against the plain version and its bound (ops/opcount.py);
  5c. K6/K7, the LM trip (csrc/lm_trip.cu): one trip from seeded random
      states (tools/lm_trip_check.py: lanes 1, 15, 32, 1536, 1537; float
      and double; accept and reject, every stopping test, bootstrap and
@@ -45,13 +51,18 @@ Phases:
      _build/ is warm);
   7. the slice, compacted: 512 surfaces x 3 starts, so the polish waves run
      (accuracy pooled over four such sets); then torch.profiler over one
-     such call (device busy, K2 + K3 share, K6/K7); an LM trip's ms at
-     1536 lanes and at a 32-lane wave against its evaluation alone;
+     such call (device busy, K2 + K3 share, K4-K7; at most 21,000 device
+     kernels and copies, checked); an LM trip's ms at 1536 lanes and at a
+     32-lane wave against its evaluation alone; a search trip's ms at 1536
+     lanes against K2 alone; how many of 1536 search lanes end elsewhere
+     when only the loss's rounding changes (float32 and float64);
   8. each kernel's time against its plain version and its bound (the
      least time for its operations or bytes, ops/opcount.py) at the main
      path's widths; K6/K7 at 1536 and 32 lanes, kernel alone
      (torch.profiler), K6 beside torch.linalg.cholesky_ex +
-     torch.cholesky_solve on the same damped matrices (library_ms);
+     torch.cholesky_solve on the same damped matrices (library_ms); the
+     fused K4/K5 through the engine's binding (ops/lbfgs_batched.py::
+     TripKernels) and alone, float at 1536 lanes and double at 15;
   9. the generator: generate_dataset for 5000 surfaces at float64
      (K1<double>, N = 128) and with use_pallas (K1<float>), checked against
      the plain pricer, the Feller cap, the ranges and the noise; K1 timed
@@ -79,8 +90,9 @@ Phases:
      five rows beside the JAX package's record, calibrate_batch_mixed with
      the winner-only LM polish and with the Wolfe polish (POLISH_LBFGS;
      trips and walls on two of the sets), the host pricer, the Greeks and
-     the implied vols on the card against the CPU; lm_minimize on one
-     bench surface at float32 and float64 (jacfwd Jacobian: K6/K7 alone);
+     the implied vols on the card against the CPU; lm_minimize and
+     lbfgs_minimize on one bench surface at float32 and float64 (jacfwd
+     Jacobian: K6/K7 alone; torch.func gradient: unfused K4/K5);
  16. the sharded calibration and the drivers: tools/graft_entry.py's
      entry() against its plain version and its dry run in a fresh process
      (one NCCL rank); calibrate_sharded on 512 Feller-capped surfaces x 3
@@ -91,21 +103,26 @@ Phases:
      (rtol 1e-9), walls printed; the DDP step of the FFN at one and two
      ranks, its gradients and running statistics against the plain
      in-process step (1e-10), its parameters two ranks against one (1e-6);
-     tools/profile_search.py at B = 512, K = 16,
+     tools/profile_search.py at B = 512, K = 16 in a fresh process (its
+     profiler windows complete; its launches read from its output),
      tools/bench_scaling.py at 1024 surfaces over 1 set, and
      tools/bench_raw_draws.py beside the JAX package's record.
 
 Every phase prints its wall. Each main-path run (phases 6, 7, 9, 12, 13,
 14, 15, 16) is driven with the launch counts set to 0 just before it and
-read just after; every kernel it should run must have launched, K4 and K5
-must have launched as often as K2 at each precision (every L-BFGS trip is
-K4, K2, K5; tools/profile_search.py, which times K2 and K4 alone,
-excepted), and K6 and K7 as often as K3 (every LM trip is K6, K3, K7, the
-bootstrap trip too; phase 15's lm_minimize, whose Jacobian is jacfwd,
-excepted: there K6 = K7). Phase 2 fails on ptxas spill stores of K1, K4,
-K5, K6 or K7. The per-kernel
-record's "launches" is the sum over those runs, with the launches of phase
-16's sharded ranks read from their JSON lines. Any failure exits non-zero. The last line is the JSON device
+read just after; every kernel it should run must have launched, fused K4
+and fused K5 must have launched as often as K2 at each precision (every
+L-BFGS trip of the calibration objective is fused K4, K2, fused K5) and
+unfused K4 as often as unfused K5, and K6 and K7 as often as K3 (every
+LM trip is K6, K3, K7, the bootstrap trip too; phase 15's lm_minimize,
+whose Jacobian is jacfwd, excepted: there K6 = K7). Phase 16's
+tools/profile_search.py runs in a process of its own, whose launch
+counts start at 0 and come back in its output file; it launches K2 and
+unfused K4 outside a trip (its scan_eval and scan_open), so there only
+fused K4 = fused K5 is held. Phase 2 fails on ptxas spill stores of K1,
+K4, K5, K6 or K7. The per-kernel record's "launches" is the sum over
+those runs, with the launches of phase 16's sharded ranks and of
+tools/profile_search.py read from their JSON. Any failure exits non-zero. The last line is the JSON device
 record; the line before it is the per-kernel JSON record.
 """
 import contextlib
@@ -163,7 +180,7 @@ def main():
     from option_pricing_ffn_lbfgs_tpu_torch.utils.hostpricer import (
         price_truth_subprocess)
     from option_pricing_ffn_lbfgs_tpu_torch.utils.timing import (
-        CudaTimer, cuda_time_ms)
+        CudaTimer, cuda_time_ms, profile_complete)
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -177,12 +194,12 @@ def main():
     all_counts = (cos_kernel.LAUNCHES, loss_kernel.LAUNCHES,
                   lbfgs_batched.LAUNCHES, lmq.LAUNCHES)
 
-    def drive(label, fn, expect, trips=True, lm_k3=True):
+    def drive(label, fn, expect, lm_k3=True):
         """Run one main path with the launch counts zeroed just before and
         read just after; every kernel in ``expect`` must have launched,
-        (``trips``) K4 and K5 as often as K2 at each precision, K6 as often
-        as K7 at each precision and (``lm_k3``) their sum as often as
-        K3."""
+        fused K4 and fused K5 as often as K2 at each precision and unfused
+        K4 as often as unfused K5, K6 as often as K7 at each precision and
+        (``lm_k3``) their sum as often as K3."""
         for counts in all_counts:
             for k in counts:
                 counts[k] = 0
@@ -194,9 +211,14 @@ def main():
         check(not missing, f"{label}: kernels {missing} of the path did "
               "not launch")
         for sfx in ("", "_f64"):
-            check(not trips or got["lbfgs_open" + sfx]
-                  == got["lbfgs_update" + sfx] == got["cos_vg_loss" + sfx],
-                  f"{label}: K4/K5{sfx} launches differ from K2{sfx}'s")
+            check(got["lbfgs_open_fused" + sfx]
+                  == got["lbfgs_update_fused" + sfx]
+                  == got["cos_vg_loss" + sfx],
+                  f"{label}: fused K4/K5{sfx} launches differ from "
+                  f"K2{sfx}'s")
+            check(got["lbfgs_open" + sfx]
+                  == got["lbfgs_update" + sfx],
+                  f"{label}: K4{sfx} and K5{sfx} launches differ")
             check(got["lm_open" + sfx] == got["lm_update" + sfx],
                   f"{label}: K6{sfx} and K7{sfx} launches differ")
         check(not lm_k3 or got["lm_open"] + got["lm_open_f64"]
@@ -250,11 +272,14 @@ def main():
                 if m:
                     entry = ("<double>" if "IdE" in m.group(1) else
                              "<float>" if "IfE" in m.group(1) else "")
-                    t = re.search(r"(lbfgs_\w+?_kernel)I([fd])Li(\d)E",
-                                  m.group(1))
+                    t = re.search(
+                        r"(lbfgs_\w+?_kernel)I([fd])Li(\d)ELb([01])E",
+                        m.group(1))
                     if t:
                         kind = "float" if t.group(2) == "f" else "double"
-                        entry = f" {t.group(1)}<{kind}, K={t.group(3)}>"
+                        fused = ", fused" if t.group(4) == "1" else ""
+                        entry = (f" {t.group(1)}<{kind}, K={t.group(3)}"
+                                 f"{fused}>")
                     t = re.search(r"(lm_(?:open|update)_kernel)I([fd])E",
                                   m.group(1))
                     if t:
@@ -271,7 +296,7 @@ def main():
                     lm_spills.append(int(m.group(1)))
     print(f"[2] cos_price spill stores per entry: {k1_spills} B; "
           f"lbfgs_trip (K4/K5 x float/double x 1, 2, 4 coordinates a "
-          f"thread): {trip_spills} B; lm_trip (K6/K7 x float/double): "
+          f"thread, and fused at 1): {trip_spills} B; lm_trip (K6/K7 x float/double): "
           f"{lm_spills} B")
     check(k1_spills and not any(k1_spills),
           "K1 spills registers (ptxas reports spill stores)")
@@ -773,7 +798,6 @@ def main():
 
     # ------------------------------------------------- 5b K4/K5, the trip --
     lap("5b")
-    from torch.profiler import ProfilerActivity, profile
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
@@ -799,19 +823,71 @@ def main():
                       f"continuous field {worst} "
                       f"{part['continuous'][worst]:.3e} of its max (tol "
                       f"{rep['tol']})")
+            bits = sum(sum(part["bits_differ"].values())
+                       for part in (rep["open"], rep["update"]))
             print(f"[5b]   done lanes changed {rep['done_lanes_changed']}, "
-                  f"live (kernel, plain) {rep['live']}"
+                  f"live (kernel, plain) {rep['live']}, entries whose bits "
+                  f"differ {bits}"
                   + (f"; branches {json.dumps(rep['coverage'])}"
                      if n_lanes == 1536 else ""))
             check(rep["ok"], f"K4/K5 disagree with the plain pair at "
                   f"L={n_lanes} {dt}")
-    # The whole engine at float64 on K2<double>: kernels against the plain
-    # pair on the card, 512 surfaces x 3 starts, N = 128, maxeval = 30.
+    # Wider lanes: 2 and 4 coordinates a thread.
+    for d in (30, 64):
+        for dt in (f32, f64):
+            rep = trip_check.check_trip(1537, dt, dev, 3 + d, d=d)
+            bits = sum(sum(part["bits_differ"].values())
+                       for part in (rep["open"], rep["update"]))
+            print(f"[5b] K4/K5 d={d} L=1537 {dt}: ok {rep['ok']}, entries "
+                  f"whose bits differ {bits}, live {rep['live']}")
+            check(rep["ok"], f"K4/K5 disagree with the plain pair at d={d}")
+    # The fused trip of the calibration objective: fused K4 and K5 against
+    # loss_kernel.lbfgs_open_fused_plain / lbfgs_update_fused_plain, in
+    # bits; the main path's widths, then rows a lane that put torch.mean's
+    # order (fused K5's mean) at each block width from 1 to 64.
+    shapes = ((1, 15), (15, 15), (1536, 15), (1537, 17), (1, 1), (2, 40),
+              (3, 64), (1, 100), (7, 127), (1536, 33))
+    for n_lanes, n_opt in shapes:
+        for dt in (f32, f64):
+            rep = trip_check.check_fused_trip(n_lanes, dt, dev, 11 + n_lanes,
+                                              n_opt=n_opt)
+            sfx = "" if dt == f32 else "_f64"
+            for kind in ("open", "update"):
+                key = f"lbfgs_{kind}_fused{sfx}"
+                trip_err[key] = max(trip_err.get(key, 0.0),
+                                    rep["max_abs_err"])
+            bad = {f"{kind}.{k}": v for kind in ("open", "update")
+                   for k, v in rep[kind].items() if v}
+            print(f"[5b] fused K4/K5 L={n_lanes} n_opt={n_opt} {dt}: entries "
+                  f"whose bits differ {bad or 'none'}; done lanes changed "
+                  f"{rep['done_lanes_changed']}, live (kernel, plain) "
+                  f"{rep['live']}"
+                  + (f"; branches {json.dumps(rep['coverage'])}"
+                     if n_lanes == 1536 else ""))
+            check(rep["ok"], f"fused K4/K5 disagree with the fused plain "
+                  f"pair at L={n_lanes} {dt}")
+            check(n_lanes != 1536 or all(rep["coverage"].values()),
+                  "the seeded fused states miss a branch")
+    # A whole float32 search on the fused trip (fused K4, K2, fused K5)
+    # against the fused plain pair around the same K2: 512 surfaces x 3
+    # starts, N = 64, maxeval = 160; every trip equal in bits.
+    search_obj, search_x0 = trip_check.search_lanes(512, 77, dev)
+    eng = trip_check.check_engine(search_obj, search_x0,
+                                  LBFGSConfig(maxeval=160))
+    print(f"[5b] fused search float32, 1536 lanes, maxeval=160, kernels vs "
+          f"fused plain pair: {json.dumps(eng)} (x and f in bits)")
+    check(eng["n_evals_equal"] and eng["n_iters_equal"]
+          and eng["x_bits_differ"] == 0 and eng["f_bits_differ"] == 0,
+          "the fused search departs from the fused plain pair")
+    # The unfused engine at float64 on K2<double> and its host assembly
+    # (called as a plain function): kernels against the plain pair on the
+    # card, 512 surfaces x 3 starts, N = 128, maxeval = 30.
     prob = [t.to(f64) if t.dtype != torch.bool else t
             for t in lanes_problem(1536, 77)]
     vg64 = loss_kernel.make_batch_value_and_grad(*prob[:5], 0.03,
                                                  CalibrationConfig())
-    eng = trip_check.check_engine(vg64, prob[5], LBFGSConfig(maxeval=30))
+    eng = trip_check.check_engine(lambda x: vg64(x), prob[5],
+                                  LBFGSConfig(maxeval=30))
     print(f"[5b] engine float64 on K2<double>, 1536 lanes, maxeval=30, "
           f"kernels vs plain pair: {json.dumps(eng)} (x rtol 1e-7)")
     check(eng["n_evals_equal"] and eng["n_iters_equal"]
@@ -831,27 +907,29 @@ def main():
         raised = str(e)
     print(f"[5b] head = m on lane 5: {raised!r}")
     check("lane 5" in raised, "a corrupt history index did not raise")
-    # Each kernel against its plain version and its bound. K4: every lane
-    # opening on a full 10-pair history (each launch rewrites the same
-    # opening fields). K5: every lane live, finite evaluations, under a
-    # configuration whose stops never fire, so the work stays the same
-    # from launch to launch; its bytes are those of the first launch.
+    # Each kernel through the engine's binding (TripKernels) against its
+    # plain version and its bound. K4: every lane opening on a full 10-pair
+    # history (each launch rewrites the same opening fields). K5: every
+    # lane live, finite evaluations, under a configuration whose stops
+    # never fire, so the work stays the same from launch to launch; its
+    # bytes are those of the first launch.
     never = LBFGSConfig(maxiter=1 << 30, ftol=-float("inf"), gtol=-1.0,
                         max_restarts=1 << 30)
 
     def alone_ms(kernel, fn):
         """The kernel alone: torch.profiler's device time over 20
         launches of the kernel whose name holds ``kernel`` (the events time
-        the wrappers' host issue when that is slower than the kernel)."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        the wrappers' host issue when that is slower than the kernel); a
+        window that recorded none of them is taken again."""
+        def launches():
             for _ in range(20):
                 fn()
-            torch.cuda.synchronize()
-        return sum(dev_us(e) for e in prof.key_averages()
-                   if kernel in e.key
-                   and "CUDA" in str(e.device_type)) / 20 / 1e3
+        mine = lambda p: [e for e in p.key_averages() if kernel in e.key
+                          and "CUDA" in str(e.device_type)]
+        torch.cuda.synchronize()
+        prof, _, _ = profile_complete(launches, lambda p: bool(mine(p)),
+                                      device=dev)
+        return sum(dev_us(e) for e in mine(prof)) / 20 / 1e3
 
     for n_lanes, dt, keep in ((1536, f32, True), (15, f64, True),
                               (1536, f64, False), (15, f32, False)):
@@ -862,9 +940,10 @@ def main():
         st.hist_len[:] = 10
         sfx = "" if dt == f32 else "_f64"
         status = torch.zeros(2, dtype=torch.int32, device=dev)
-        k4 = lambda: lb.lbfgs_open(st, never, status)
+        k4 = lb.TripKernels(st, never, status, torch.empty_like(st.x)).open
         kernel_vs_plain(
-            f"[5b] lbfgs_open{sfx} L={n_lanes} (all opening, hist_len 10):",
+            f"[5b] lbfgs_open{sfx} L={n_lanes} (all opening, hist_len 10; "
+            f"the binding):",
             "lbfgs_open" + sfx, k4, lambda: lb.lbfgs_open_plain(st, never),
             opcount.lbfgs_open_work(st), dt, keep)
         alone = {"open": alone_ms("lbfgs_open_kernel", k4)}
@@ -872,10 +951,11 @@ def main():
         st_p, x_try = lb.lbfgs_open_plain(st, never)
         st5 = trip_check.clone_state(st_p)
         before = trip_check.clone_state(st5)
-        k5 = lambda: lb.lbfgs_update(st5, x_try, f_try, g_try, never, status)
+        k5_bound = lb.TripKernels(st5, never, status, x_try)
+        k5 = lambda: k5_bound.update(f_try, g_try)
         k5()
         kernel_vs_plain(
-            f"[5b] lbfgs_update{sfx} L={n_lanes} (all live):",
+            f"[5b] lbfgs_update{sfx} L={n_lanes} (all live; the binding):",
             "lbfgs_update" + sfx, k5,
             lambda: lb.lbfgs_update_plain(st_p, x_try, f_try, g_try, never),
             opcount.lbfgs_update_work(before, st5), dt, keep)
@@ -1067,12 +1147,13 @@ def main():
           f"{one_ms / 1e3:.3f} s")
     # torch.profiler over one more compacted call: the device's busy time
     # (the sum of its kernels' time) and the K2 + K3 share of the
-    # unprofiled wall just measured.
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, prof_ms = timed(slice_cfg)
-    # device-side entries only (kernels, copies): a CPU op such as
-    # aten::index also carries the time of the kernel it launched
+    # unprofiled wall just measured. Device-side entries only (kernels,
+    # copies): a CPU op such as aten::index also carries the time of the
+    # kernel it launched. A window that recorded no K2 is taken again.
+    k2_seen = lambda p: any("cos_vg_kernel" in e.key for e in p.key_averages()
+                            if dev_us(e) > 0 and "CUDA" in str(e.device_type))
+    prof, (_, prof_ms), n_win = profile_complete(lambda: timed(slice_cfg),
+                                                 k2_seen, device=dev)
     on_dev = [e for e in prof.key_averages()
               if dev_us(e) > 0 and "CUDA" in str(e.device_type)]
     busy = sum(dev_us(e) for e in on_dev) / 1e3
@@ -1080,15 +1161,21 @@ def main():
     k1 = sum(dev_us(e) for e in on_dev if "cos_price_kernel" in e.key) / 1e3
     k67 = sum(dev_us(e) for e in on_dev if "lm_open_kernel" in e.key
               or "lm_update_kernel" in e.key) / 1e3
+    k45 = sum(dev_us(e) for e in on_dev if "lbfgs_open_kernel" in e.key
+              or "lbfgs_update_kernel" in e.key) / 1e3
     n_ops = sum(e.count for e in on_dev)
     unprof = min(wave_ms, wave_ms_b)
     print(f"[7] profile of one compacted 512 x 3 call (profiled wall "
-          f"{prof_ms:.2f} ms; unprofiled {unprof:.2f} ms): {n_ops} device "
+          f"{prof_ms:.2f} ms; unprofiled {unprof:.2f} ms; profiler windows "
+          f"{n_win}): {n_ops} device "
           f"kernels and copies, busy {busy:.2f} ms = {100 * busy / unprof:.1f} % of the "
           f"unprofiled wall; K2 + K3 (cos_vg_kernel) {vg:.2f} ms = "
           f"{100 * vg / unprof:.1f} %; K1 (cos_price_kernel) {k1:.2f} ms; "
+          f"K4 + K5 (lbfgs_open/lbfgs_update_kernel) {k45:.2f} ms; "
           f"K6 + K7 (lm_open/lm_update_kernel) {k67:.2f} ms")
     check(vg > 0, "the profile shows no cos_vg_kernel time")
+    check(n_ops <= 21000, f"{n_ops} device kernels and copies in one 512 x 3 "
+          "call: the fused search trip should leave at most 21,000")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
         print(f"[7]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
     # An LM trip of the polish (K6, K1<double> and K3 with their assembly,
@@ -1104,6 +1191,26 @@ def main():
               f"(K1<double> + K3 and their assembly) {tm['evaluation_ms']:.3f}"
               f" ms, K6 + K7 + the read {tm['rest_ms']:.3f} ms (CUDA "
               f"events)")
+    # A search trip (fused K4, K2, fused K5, the read) at the search's 1536
+    # lanes against K2 alone (CUDA events).
+    tm = trip_check.search_trip_ms(search_obj, search_x0,
+                                   LBFGSConfig(maxeval=160))
+    print(f"[7] search trip at {tm['lanes']} lanes ({tm['trips']} trips): "
+          f"{tm['trip_ms']:.4f} ms a trip, of which K2 alone "
+          f"{tm['k2_ms']:.4f} ms, fused K4 + K5 + the read "
+          f"{tm['rest_ms']:.4f} ms (CUDA events)")
+    # The fused trip against the unfused one around the host assembly
+    # (K4, K2, BatchValueAndGrad's torch ops, K5), float32 and float64,
+    # 512 x 3, to the end (maxeval 160): the same computation in the same
+    # order, so every lane ends with the same bits.
+    for dt in (f32, f64):
+        sens_obj, sens_x0 = trip_check.search_lanes(512, 77, dev, dtype=dt)
+        sens = trip_check.route_sensitivity(sens_obj, sens_x0,
+                                            LBFGSConfig(maxeval=160))
+        print(f"[7] search {dt}, fused trip vs host assembly: "
+              f"{json.dumps(sens)}")
+        check(sens["x_differs"] == 0 and sens["n_evals_differ"] == 0,
+              f"the fused {dt} search parts from the host assembly's")
     args, prices, feller_ok = problem_set(512, 2026 + 100)
     with CudaTimer() as timer:
         out = calibrate(args, 100)
@@ -1222,6 +1329,54 @@ def main():
             for kind, ms in alone.items():
                 record["lm_" + kind + sfx]["kernel_alone_ms"] = ms
             record["lm_open" + sfx]["library_ms"] = lib_ms
+
+    # The fused K4/K5 through the engine's binding (TripKernels: one
+    # prepared ctypes call a launch) against the fused plain versions and
+    # their bound: float at the search's 1536 lanes, double at 15 (the
+    # float64 paths run a few lanes). K4: every lane opening on a full
+    # 10-pair history; K5: every lane live under a configuration whose
+    # stops never fire, on seeded K2 outputs (tools/trip_check.py).
+    lbfgs_never = LBFGSConfig(maxiter=1 << 30, ftol=-float("inf"),
+                              gtol=-1.0, max_restarts=1 << 30)
+    for n_lanes, dt in ((1536, f32), (15, f64)):
+        st, trial = trip_check.random_fused(n_lanes, dt, dev, 21)
+        st.done[:] = False
+        st.starting[:] = True
+        st.hist_len[:] = 10
+        sfx = "" if dt == f32 else "_f64"
+        status = torch.zeros(2, dtype=torch.int32, device=dev)
+        k4 = lb.TripKernels(st, lbfgs_never, status, torch.empty_like(st.x),
+                            trial)
+        kernel_vs_plain(
+            f"[8] lbfgs_open_fused{sfx} L={n_lanes} (all opening, hist_len "
+            f"10; the binding):", "lbfgs_open_fused" + sfx, k4.open,
+            lambda: loss_kernel.lbfgs_open_fused_plain(st, lbfgs_never),
+            opcount.lbfgs_open_work(st, fused=True), dt, True)
+        alone = {"open": alone_ms("lbfgs_open_kernel", k4.open)}
+        st.starting[:] = torch.arange(n_lanes, device=dev) % 3 == 0
+        st_p, x_p, params_p = loss_kernel.lbfgs_open_fused_plain(
+            st, lbfgs_never)
+        st5 = trip_check.clone_state(st_p)
+        before = trip_check.clone_state(st5)
+        k5 = lb.TripKernels(st5, lbfgs_never, status, x_p,
+                            trial._replace(params_try=params_p))
+        k5.update()
+        kernel_vs_plain(
+            f"[8] lbfgs_update_fused{sfx} L={n_lanes} (all live; the "
+            f"binding):", "lbfgs_update_fused" + sfx, k5.update,
+            lambda: loss_kernel.lbfgs_update_fused_plain(
+                st_p, x_p, params_p, trial.price, trial.g_price, trial.mkt,
+                trial.weight, trial.bad_loss, lbfgs_never),
+            opcount.lbfgs_update_work(before, st5,
+                                      n_opt=trial.mkt.shape[1]), dt, True)
+        alone["update"] = alone_ms("lbfgs_update_kernel", k5.update)
+        check(not bool(st5.done.any()), "fused K5 timing state: a lane "
+              "finished")
+        print(f"[8]   fused K4/K5 alone (torch.profiler, 20 launches) "
+              f"L={n_lanes} {dt}: K4 {alone['open']:.5f} ms, K5 "
+              f"{alone['update']:.5f} ms")
+        for kind, ms in alone.items():
+            record[f"lbfgs_{kind}_fused{sfx}"]["kernel_alone_ms"] = ms
 
     # ------------------------------------------------------- 9 generator --
     lap(9)
@@ -1411,7 +1566,8 @@ def main():
     # hybrid calls; K4/K5 check the circular indices and a corrupt one
     # raises (the error word), which would have failed this phase.
     print(f"[12] K4/K5 error word: not set over this phase's three hybrid "
-          f"and refine runs ({path_launches_last['lbfgs_open']} K4 launches "
+          f"and refine runs ({path_launches_last['lbfgs_open_fused']} fused "
+          f"K4 launches "
           f"in the timed call)")
 
     # -------------------------------------------------- 13 entry points --
@@ -1571,17 +1727,22 @@ def main():
         train_epoch(xb, yb, g_dev)
     host_ms = (time.perf_counter() - t0) * 1e3
     step_ms = timer.ms / 50
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with CudaTimer() as t_prof:
-            train_epoch(xb, yb, g_dev)
     # Device entries that are kernels or copies: a user annotation such as
-    # "Optimizer.step#Adam.step" spans its kernels and the gaps between.
+    # "Optimizer.step#Adam.step" spans its kernels and the gaps between. A
+    # window that recorded none is taken again.
+    step_entries = lambda p: [
+        e for e in p.key_averages()
+        if dev_us(e) > 0 and "CUDA" in str(e.device_type)
+        and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+
+    def profiled_epoch():
+        with CudaTimer() as t_:
+            train_epoch(xb, yb, g_dev)
+        return t_
+    prof, t_prof, n_win = profile_complete(
+        profiled_epoch, lambda p: bool(step_entries(p)), device=dev)
     averages = prof.key_averages()
-    on_dev = [e for e in averages
-              if dev_us(e) > 0 and "CUDA" in str(e.device_type)
-              and not getattr(e, "is_user_annotation", False)
-              and "#" not in e.key]
+    on_dev = step_entries(prof)
     busy = sum(dev_us(e) for e in on_dev) / 1e3
     n_ops = sum(e.count for e in on_dev)
     n_aten = sum(e.count for e in averages if e.key.startswith("aten::"))
@@ -1591,7 +1752,7 @@ def main():
           f"device kernels and copies and {n_aten / 50:.1f} host ATen ops a "
           f"step, busy {busy:.3f} ms = {100 * busy / timer.ms:.1f} % of the "
           f"unprofiled wall ({timer.ms:.2f} ms; profiled {t_prof.ms:.2f} "
-          f"ms)")
+          f"ms; profiler windows {n_win})")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
         print(f"[14]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
     check(busy > 0, "the profile shows no device time for the train steps")
@@ -1715,6 +1876,31 @@ def main():
               f"converged {bool(r1.converged)}")
         check(bool(torch.isfinite(r1.x).all()) and float(r1.f) < f0,
               f"lm_minimize {dt} did not descend")
+    # lbfgs_minimize, the L-BFGS engine's one-lane entry, the same way: its
+    # objective is a plain function differentiated by torch.func, so every
+    # trip is unfused K4, the evaluation, unfused K5.
+    from option_pricing_ffn_lbfgs_tpu_torch.ops.lbfgs import lbfgs_minimize
+
+    def one_lane_lbfgs():
+        out_ = {}
+        for dt in (f32, f64):
+            one = [a[:1].to(dt) if a.is_floating_point() else a[:1]
+                   for a in a0[:5]]
+            loss1 = make_loss_fn(one[0], 0.03, *one[1:], CalibrationConfig())
+            x0_1 = inverse_transform(torch.tensor(GUESS0, dtype=dt,
+                                                  device=dev))
+            out_[dt] = (float(loss1(x0_1[None])[0]),
+                        lbfgs_minimize(lambda x: loss1(x[None])[0], x0_1,
+                                       LBFGSConfig(maxiter=20)))
+        return out_
+    lb1 = drive(15, one_lane_lbfgs, ["lbfgs_open", "lbfgs_update",
+                                     "lbfgs_open_f64", "lbfgs_update_f64"])
+    for dt, (f0, r1) in lb1.items():
+        print(f"[15] lbfgs_minimize {dt}, bench surface 0 from GUESS0: loss "
+              f"{f0:.4e} -> {float(r1.f):.4e} in {int(r1.n_evals)} trips, "
+              f"converged {bool(r1.converged)}")
+        check(bool(torch.isfinite(r1.x).all()) and float(r1.f) < f0,
+              f"lbfgs_minimize {dt} did not descend")
 
     # The host pricer, the Greeks and the implied vols: card against CPU.
     true0, spots0 = tbench.truths(0), np.full(5, 100.0)
@@ -1760,8 +1946,7 @@ def main():
     # --------------------------- 16 the sharded calibration and drivers --
     lap(16)
     from option_pricing_ffn_lbfgs_tpu_torch.tools import (
-        bench_raw_draws, bench_scaling, dist_check, graft_entry,
-        profile_search)
+        bench_raw_draws, bench_scaling, dist_check, graft_entry)
     # (a) entry(): K1<float> on one surface against its plain version; the
     # dry run in a fresh process on a one-rank NCCL group.
     fn, e_args = graft_entry.entry()
@@ -1888,13 +2073,43 @@ def main():
           f"{ref_wall:.3f} s, 1 rank {sharded_runs[1][0][0]['wall_s']:.3f} "
           f"s, 2 ranks {max(ln['wall_s'] for ln in sharded_runs[2][0]):.3f} s")
 
-    # (d) the drivers: the search profile at B = 512, K = 16; the scaling
-    # sweep at 1024 surfaces over 1 set (its full default sweep, ~5 min,
-    # is run by itself for PERF.md); the raw draws beside the JAX
+    # (d) the drivers: the search profile at B = 512, K = 16, in a fresh
+    # process (in this one, which has run for minutes, torch.profiler lost
+    # up to 20 device records a window: all of scan_open's K4 launches),
+    # its rows read from its --out file, every window's records complete
+    # (scan_open: 16 K4 and a sum; a fused trip: K4, K2 and K5; the tool
+    # takes such a window again, up to 3 in all, when it is not); the
+    # scaling sweep at 1024 surfaces over 1 set (its full default sweep,
+    # ~5 min, is run by itself for PERF.md); the raw draws beside the JAX
     # package's record (accuracy only).
-    drive(16, lambda: profile_search.main(["--batches", "512", "--k", "16"]),
-          ["cos_vg_loss", "cos_price_f32", "lbfgs_open", "lbfgs_update"],
-          trips=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_ps = os.path.join(tmp, "profile.json")
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "option_pricing_ffn_lbfgs_tpu_torch.tools.profile_search",
+             "--batches", "512", "--k", "16", "--out", out_ps],
+            capture_output=True, text=True, timeout=600, cwd=here)
+        check(proc.returncode == 0, f"tools/profile_search.py failed: "
+              f"{proc.stderr[-2000:]}")
+        with open(out_ps) as f:
+            ps_out = json.load(f)
+        (ps_row,) = ps_out["results"]
+    print(f"[16] tools/profile_search.py (fresh process): {json.dumps(ps_row)}"
+          f"; launches {json.dumps(ps_out['launches'])}")
+    ps_launches = ps_out["launches"]
+    missing = [k for k in ("cos_vg_loss", "lbfgs_open", "lbfgs_open_fused",
+                           "lbfgs_update_fused") if ps_launches[k] == 0]
+    check(not missing, f"tools/profile_search.py: kernels {missing} of its "
+          "path did not launch")
+    check(ps_launches["lbfgs_open_fused"] == ps_launches["lbfgs_update_fused"],
+          "tools/profile_search.py: fused K4 and K5 launches differ")
+    for k, v in ps_launches.items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    check(ps_row["open_kernels_per_trip"] == 17 / 16
+          and ps_row["fused_kernels_per_trip"] == 3.0
+          and ps_row["winner_max_evals"] > 0,
+          "tools/profile_search.py: a profiler window lost device records, "
+          "or K4 / the fused trip did not launch")
     drive(16, lambda: bench_scaling.main(["--batches", "1024", "--sets",
                                           "1"]), all4)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1935,6 +2150,12 @@ def main():
             "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:194",
         "lbfgs_update_f64":
             "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:194",
+        # The fused modes take over the loss's host assembly as well
+        # (loss_pallas.py:205-231 in the JAX package).
+        **{k: "option_pricing_ffn_lbfgs_tpu/ops/lbfgs_batched.py:"
+           + ("80" if "open" in k else "194")
+           for k in ("lbfgs_open_fused", "lbfgs_open_fused_f64",
+                     "lbfgs_update_fused", "lbfgs_update_fused_f64")},
         # No Pallas twin: the body of JAX's LM lax.while_loop (:257-314),
         # its vmapped cho_factor / cho_solve at :267-268.
         **{k: "option_pricing_ffn_lbfgs_tpu/ops/levenberg_marquardt.py:257"

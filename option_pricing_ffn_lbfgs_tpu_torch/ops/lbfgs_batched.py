@@ -32,6 +32,26 @@ synchronisation of a trip, where the JAX package evaluates its
 the plain versions ``lbfgs_open_plain`` / ``lbfgs_update_plain``, which
 build new state tensors, and copy the result into the state. There is no
 other path: a CUDA tensor launches the kernels or raises.
+
+An objective that has a ``bind_trip`` method binds its own trip: the
+calibration objective (``ops/loss_kernel.py::BatchValueAndGrad``, what
+``make_batch_value_and_grad`` returns) binds the fused trip, in which K4
+also writes ``params_try = transform(x_try)``, K2 prices it into
+preallocated buffers, and K5 assembles the loss and its gradient from
+K2's outputs (its host assembly, in the same order) before its update::
+
+    K4 fused        # x_try, params_try
+    K2              # price, g_price at params_try
+    K5 fused        # the loss and its gradient, then the update
+
+The engine's side of it is ``TripKernels`` with a ``FusedTrial``: the
+buffers and the objective's constants the fused entries take. Any other
+callable takes the trip above. Either way the trip is bound once per run
+(``TripKernels``: the state, status word and buffers checked, the pointer
+array packed, the C entries and the stream resolved once), so a trip on
+the card is two or three ctypes calls, the evaluation, and one host read.
+On CUDA tensors the plain versions sum in the kernels' order (``_dot``),
+so on the card the kernels equal them in bits.
 """
 from __future__ import annotations
 
@@ -45,11 +65,16 @@ from . import kernel_build
 
 # Launches of each kernel, counted where it is launched.
 LAUNCHES = {"lbfgs_open": 0, "lbfgs_update": 0, "lbfgs_open_f64": 0,
-            "lbfgs_update_f64": 0}
+            "lbfgs_update_f64": 0, "lbfgs_open_fused": 0,
+            "lbfgs_update_fused": 0, "lbfgs_open_fused_f64": 0,
+            "lbfgs_update_fused_f64": 0}
 # The kernels keep a lane's coordinates in registers, 16 threads a lane
 # and up to 4 coordinates a thread; the history's alphas in shared memory.
 MAX_DIM = 64
 MAX_HISTORY = 512
+GROUP = 16                  # threads a lane
+N_PARAMS = 13               # the fused mode's d
+MAX_ROWS = 128              # the fused mode's n: below it
 
 
 class LBFGSResult(NamedTuple):
@@ -114,7 +139,24 @@ assert tuple(_LAYOUT) == _BState._fields
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    """``sum_c a_c b_c`` over the last axis. On CUDA tensors in the
+    kernels' order: the products padded with zeros to a multiple of 16,
+    u_t = 0 + the products of coordinates t, t + 16, ... in order, then the
+    butterfly u_t + u_{t+8}, ..., + u_{t+1}. On the CPU ``torch.sum``."""
+    p = a * b
+    if p.device.type == "cpu":
+        return torch.sum(p, dim=-1)
+    d = p.shape[-1]
+    per = -(-d // GROUP)
+    p = torch.nn.functional.pad(p, (0, per * GROUP - d))
+    u = torch.zeros_like(p[..., :GROUP])
+    for k in range(per):
+        u = u + p[..., k * GROUP:(k + 1) * GROUP]
+    o = GROUP // 2
+    while o:
+        u = u[..., :o] + u[..., o:2 * o]
+        o //= 2
+    return u[..., 0]
 
 
 def _col(v):
@@ -435,26 +477,179 @@ def _update_plain_inplace(st, x_try, f_try, g_try, config, status):
     status[0] = torch.count_nonzero(~st.done).to(torch.int32)
 
 
+class FusedTrial(NamedTuple):
+    """What the fused entries take besides the state, from the objective
+    that binds them (``ops/loss_kernel.py::BatchValueAndGrad.bind_trip``):
+    the buffers around K2, ``params_try [L, 13]`` (fused K4 writes it, K2
+    reads it), K2's ``price [L, n]`` and ``g_price [L, 13]`` (fused K5
+    reads them) and the lanes' market prices ``mkt [L, n]``; the Feller
+    weight and the sentinel; the transform's ``exp_mask`` and
+    ``tanh_mask`` (bit c: coordinate c); ``feller``, each variance
+    factor's (sigma, kappa, theta) indices; and ``mean_width`` and
+    ``mean_factor``, the block width and factor of ``torch.mean`` over
+    ``[L, n]`` on the card, n < 128."""
+    params_try: torch.Tensor
+    price: torch.Tensor
+    g_price: torch.Tensor
+    mkt: torch.Tensor
+    weight: float
+    bad_loss: float
+    exp_mask: int
+    tanh_mask: int
+    feller: tuple
+    mean_width: int
+    mean_factor: float
+
+
+def _check_buffer(name, t, shape, dt, dev):
+    if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected contiguous {dt} {shape} on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _check_fused(st: _BState, trial: FusedTrial):
+    """Raises unless ``trial`` fits the state for the fused kernels."""
+    L, d = st.x.shape
+    dt, dev = st.x.dtype, st.x.device
+    if d != N_PARAMS:
+        raise ValueError(f"the fused trip takes d = {N_PARAMS}, got d={d}")
+    if trial.mkt.dim() != 2 or not 1 <= trial.mkt.shape[1] < MAX_ROWS:
+        raise ValueError(f"the fused trip takes market prices [L, n], "
+                         f"1 <= n < {MAX_ROWS}")
+    n = trial.mkt.shape[1]
+    w = trial.mean_width
+    if not (1 <= w <= min(n, 64) and w & (w - 1) == 0):
+        raise ValueError(f"mean_width {w}: a power of two, at most "
+                         f"min(n, 64)")
+    if (trial.exp_mask | trial.tanh_mask) >> N_PARAMS or (
+            trial.exp_mask & trial.tanh_mask):
+        raise ValueError("exp_mask and tanh_mask: disjoint coordinate "
+                         f"masks below bit {N_PARAMS}")
+    idx = [c for factor in trial.feller for c in factor]
+    if len(idx) != 6 or not all(0 <= c < N_PARAMS for c in idx):
+        raise ValueError("feller: two (sigma, kappa, theta) index triples")
+    for name, shape in (("params_try", (L, N_PARAMS)), ("price", (L, n)),
+                        ("g_price", (L, N_PARAMS)), ("mkt", (L, n))):
+        _check_buffer(name, getattr(trial, name), shape, dt, dev)
+
+
 _OPEN_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p]
+# state, x_try, params_try; exp_mask, tanh_mask; status; L, d, m; stream
+_OPEN_FUSED_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_uint] * 2
+                        + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
 # state, x_try, f_try, g_try, status; c1, c2, ftol, gtol; max_linesearch,
 # max_restarts, maxiter, maxeval, L, d, m; stream
 _UPDATE_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4
                     + [ctypes.c_double] * 4 + [ctypes.c_int] * 7
                     + [ctypes.c_void_p])
+# state, x_try, params_try, price, g_price, mkt, status; c1, c2, ftol, gtol,
+# weight, bad_loss, mean_factor; max_linesearch, max_restarts, maxiter,
+# maxeval, n_opt, mean_width; exp_mask, tanh_mask; feller; L, d, m; stream
+_UPDATE_FUSED_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)]
+                          + [ctypes.c_void_p] * 6 + [ctypes.c_double] * 7
+                          + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
+                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _suffix(dt):
     return "f32" if dt == torch.float32 else "f64"
 
 
-def _count_key(kind, dt):
-    return f"lbfgs_{kind}" + ("" if dt == torch.float32 else "_f64")
+def _count_key(kind, dt, fused=False):
+    return (f"lbfgs_{kind}" + ("_fused" if fused else "")
+            + ("" if dt == torch.float32 else "_f64"))
 
 
 def _pointers(st: _BState):
     return (ctypes.c_void_p * len(st))(*(t.data_ptr() for t in st))
+
+
+class TripKernels:
+    """K4 and K5 bound once to the state ``st`` (which they update in
+    place), its status word and the trial buffers, CUDA tensors only:
+    every check, the pointer array, the C entries, the stream and the
+    scalar arguments are prepared here, so each launch is one ctypes call.
+
+    Unfused (``fused=None``): ``open()`` writes ``x_try``;
+    ``update(f_try, g_try)`` takes the evaluation at ``x_try``. Fused
+    (``fused`` a ``FusedTrial``, d = 13): ``open()`` also writes
+    ``fused.params_try``; ``update()`` assembles the evaluation from
+    ``fused``'s K2 outputs and market prices."""
+
+    def __init__(self, st: _BState, config: LBFGSConfig, status, x_try,
+                 fused: FusedTrial = None):
+        L, d, m = _check_state(st, config)
+        dt, dev = st.x.dtype, st.x.device
+        _check_status(status, dev)
+        if dev.type != "cuda":
+            raise ValueError(f"K4/K5 launch on CUDA tensors, got {dev}")
+        _check_buffer("x_try", x_try, (L, d), dt, dev)
+        if fused is not None:
+            _check_fused(st, fused)
+        self._st, self._x_try = st, x_try
+        self._keep = (status, fused)
+        self._fused = fused is not None
+        ptrs = _pointers(st)                 # the fields are updated in place
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sfx = ("fused_" if fused is not None else "") + _suffix(dt)
+        self._open_key = _count_key("open", dt, fused is not None)
+        self._update_key = _count_key("update", dt, fused is not None)
+        wolfe = (float(config.wolfe_c1), float(config.wolfe_c2),
+                 float(config.ftol), float(config.gtol))
+        caps = (int(config.max_linesearch), int(config.max_restarts),
+                int(config.maxiter), int(config.maxeval))
+        if fused is None:
+            self._open_fn = kernel_build.entry(
+                "lbfgs_trip", f"lbfgs_open_{sfx}", _OPEN_ARGTYPES)
+            self._open_args = (ptrs, x_try.data_ptr(), status.data_ptr(),
+                               L, d, m, stream)
+            self._update_fn = kernel_build.entry(
+                "lbfgs_trip", f"lbfgs_update_{sfx}", _UPDATE_ARGTYPES)
+            self._update_args = ((ptrs, x_try.data_ptr()),
+                                 (status.data_ptr(), *wolfe, *caps, L, d, m,
+                                  stream))
+        else:
+            self._open_fn = kernel_build.entry(
+                "lbfgs_trip", f"lbfgs_open_{sfx}", _OPEN_FUSED_ARGTYPES)
+            self._open_args = (ptrs, x_try.data_ptr(),
+                               fused.params_try.data_ptr(), fused.exp_mask,
+                               fused.tanh_mask, status.data_ptr(), L, d, m,
+                               stream)
+            feller = sum(c << (4 * i) for i, c in enumerate(
+                c for factor in fused.feller for c in factor))
+            self._update_fn = kernel_build.entry(
+                "lbfgs_trip", f"lbfgs_update_{sfx}", _UPDATE_FUSED_ARGTYPES)
+            self._update_args = (
+                ptrs, x_try.data_ptr(), fused.params_try.data_ptr(),
+                fused.price.data_ptr(), fused.g_price.data_ptr(),
+                fused.mkt.data_ptr(), status.data_ptr(), *wolfe,
+                float(fused.weight), float(fused.bad_loss),
+                float(fused.mean_factor), *caps, fused.mkt.shape[1],
+                fused.mean_width, fused.exp_mask, fused.tanh_mask, feller,
+                L, d, m, stream)
+
+    def open(self) -> None:
+        """K4: one launch."""
+        kernel_build.check(self._open_fn(*self._open_args), self._open_key)
+        LAUNCHES[self._open_key] += 1
+
+    def update(self, f_try=None, g_try=None) -> None:
+        """K5: one launch, on ``(f_try, g_try)`` (unfused) or on the fused
+        buffers."""
+        if self._fused:
+            args = self._update_args
+        else:
+            _, f_try, g_try = _trial(self._st, self._x_try, f_try, g_try)
+            head, tail = self._update_args
+            args = (*head, f_try.data_ptr(), g_try.data_ptr(), *tail)
+        kernel_build.check(self._update_fn(*args), self._update_key)
+        LAUNCHES[self._update_key] += 1
 
 
 def lbfgs_open(st: _BState, config: LBFGSConfig,
@@ -472,13 +667,7 @@ def lbfgs_open(st: _BState, config: LBFGSConfig,
     if L == 0:
         status[0] = 0
         return x_try
-    dt = st.x.dtype
-    err = kernel_build.entry("lbfgs_trip", f"lbfgs_open_{_suffix(dt)}",
-                             _OPEN_ARGTYPES)(
-        _pointers(st), x_try.data_ptr(), status.data_ptr(), L, d, m,
-        torch.cuda.current_stream(st.x.device).cuda_stream)
-    kernel_build.check(err, _count_key("open", dt))
-    LAUNCHES[_count_key("open", dt)] += 1
+    TripKernels(st, config, status, x_try).open()
     return x_try
 
 
@@ -509,16 +698,7 @@ def lbfgs_update(st: _BState, x_try, f_try, g_try, config: LBFGSConfig,
         return
     if L == 0:
         return
-    dt = st.x.dtype
-    err = kernel_build.entry("lbfgs_trip", f"lbfgs_update_{_suffix(dt)}",
-                             _UPDATE_ARGTYPES)(
-        _pointers(st), x_try.data_ptr(), f_try.data_ptr(), g_try.data_ptr(),
-        status.data_ptr(), float(config.wolfe_c1), float(config.wolfe_c2),
-        float(config.ftol), float(config.gtol), int(config.max_linesearch),
-        int(config.max_restarts), int(config.maxiter), int(config.maxeval),
-        L, d, m, torch.cuda.current_stream(st.x.device).cuda_stream)
-    kernel_build.check(err, _count_key("update", dt))
-    LAUNCHES[_count_key("update", dt)] += 1
+    TripKernels(st, config, status, x_try).update(f_try, g_try)
 
 
 def read_live(status: torch.Tensor) -> int:
@@ -532,20 +712,49 @@ def read_live(status: torch.Tensor) -> int:
     return live
 
 
+def _bind_trip(vg_fn: Callable, st: _BState, config: LBFGSConfig,
+               status: torch.Tensor, plain: bool) -> Callable:
+    """One trip of the engine as a function of no arguments, bound once:
+    everything checked here raises before the first trip. An objective
+    with a ``bind_trip(st, config, status, plain)`` method binds its own
+    trip (it returns None where its fused kernels do not take it). Else on
+    CUDA tensors (unless ``plain``) K4, ``vg_fn`` and K5; otherwise the
+    plain versions in place."""
+    _check_state(st, config)
+    _check_status(status, st.x.device)
+    card = st.x.device.type == "cuda" and not plain
+    bind = getattr(vg_fn, "bind_trip", None)
+    trip = None if bind is None else bind(st, config, status, plain)
+    if trip is not None:
+        return trip
+    if card:
+        x_try = torch.empty_like(st.x)
+        kernels = TripKernels(st, config, status, x_try)
+
+        def trip():
+            kernels.open()
+            kernels.update(*vg_fn(x_try))
+        return trip
+
+    def trip():
+        x_try = _open_plain_inplace(st, config, status)
+        _, f_try, g_try = _trial(st, x_try, *vg_fn(x_try))
+        _update_plain_inplace(st, x_try, f_try, g_try, config, status)
+    return trip
+
+
 def _run(vg_fn: Callable, x0: torch.Tensor, config: LBFGSConfig,
-         open_fn: Callable = lbfgs_open,
-         update_fn: Callable = lbfgs_update) -> LBFGSResult:
-    """The engine's loop over one pair of trip functions with the
-    wrappers' in-place signatures: the kernels (the default) or
-    ``_open_plain_inplace`` / ``_update_plain_inplace``, which the card's
-    checks run to hold the kernels against the plain pair."""
+         plain: bool = False) -> LBFGSResult:
+    """The engine's loop: the trip bound once (``_bind_trip``), then one
+    trip and one host read of the live count until no lane is live. With
+    ``plain`` the trip runs the plain versions on any device, which the
+    card's checks hold the kernels to."""
     st = init_state(x0, config.history)
     status = torch.zeros(2, dtype=torch.int32, device=x0.device)
+    trip = _bind_trip(vg_fn, st, config, status, plain)
     live = x0.shape[0]
     while live:
-        x_try = open_fn(st, config, status)
-        f_try, g_try = vg_fn(x_try)
-        update_fn(st, x_try, f_try, g_try, config, status)
+        trip()
         live = read_live(status)
     return LBFGSResult(x=st.x, f=st.f, grad=st.g, n_iters=st.n_iters,
                        n_evals=st.n_evals, converged=st.converged)
@@ -558,6 +767,9 @@ def lbfgs_minimize_batched(vg_fn: Callable, x0: torch.Tensor,
 
     Non-finite gradient entries returned by ``vg_fn`` are zeroed and
     non-finite values count as +inf. On CUDA tensors every trip runs K4
-    and K5; on CPU tensors their plain versions.
+    and K5 around ``vg_fn``, or, when ``vg_fn`` is the calibration
+    objective (``ops/loss_kernel.py::BatchValueAndGrad``, n < 128 rows a
+    lane), fused K4, K2 and fused K5; on CPU tensors their plain
+    versions.
     """
     return _run(vg_fn, x0, config)

@@ -25,20 +25,30 @@ launches the kernel or raises.
 ``make_batch_value_and_grad`` and ``make_batch_residual_jacobian`` are the
 host assemblies of ``loss_pallas.py:205-231`` and ``:273-285``: the
 validity mask, the Feller penalty (and its two Jacobian rows from the
-masked sqrt), the exp/tanh chain rule and the sentinel.
+masked sqrt), the exp/tanh chain rule and the sentinel. The first
+returns a ``BatchValueAndGrad``, which is callable and also binds its own
+L-BFGS trip for ``ops/lbfgs_batched.py::lbfgs_minimize_batched``
+(``bind_trip``): fused K4, K2 bound once per run
+(``bind_rows_value_and_grad``) and fused K5, which takes over this
+assembly in its order, so on the card the fused trip gives the bits of K4,
+K2, this assembly and K5. Its plain versions are
+``lbfgs_open_fused_plain`` and ``lbfgs_update_fused_plain``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..calibration.loss import feller_penalty
-from ..calibration.transforms import dtransform_dx, transform
+from ..calibration.transforms import (_EXP_IDX, _TANH_IDX, dtransform_dx,
+                                      transform)
 from ..models.double_heston import DHParams, price_options
-from ..utils.config import CalibrationConfig
+from ..utils.config import CalibrationConfig, LBFGSConfig
 from . import kernel_build
+from . import lbfgs_batched as lb
 
 # Launches of each (mode, dtype), counted where the kernel is launched.
 LAUNCHES = {"cos_vg_loss": 0, "cos_vg_jac": 0, "cos_vg_loss_f64": 0}
@@ -53,6 +63,13 @@ _ENTRIES = {
 # rate, q, L; n_lanes, n_opt, n_terms, mode; stream
 ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_double] * 3
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# Each variance factor's (sigma, kappa, theta) in the parameter vector.
+FELLER_IDX = tuple(tuple(DHParams._fields.index(f"{name}{i}")
+                         for name in ("sigma", "kappa", "theta"))
+                   for i in (1, 2))
+# The transform's coordinates, as bit masks for the fused kernels.
+EXP_MASK = sum(1 << c for c in _EXP_IDX)
+TANH_MASK = sum(1 << c for c in _TANH_IDX)
 
 
 def maturity_groups(maturities: torch.Tensor) -> torch.Tensor:
@@ -68,10 +85,10 @@ def maturity_groups(maturities: torch.Tensor) -> torch.Tensor:
     return torch.gather(dense, -1, first).to(torch.int32)
 
 
-def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
-            n_terms, L, q, groups):
-    """Launch cos_vg on CUDA tensors: (price [L, n], grad [L, 13] in mode
-    "loss" or rows [L, n, 13] in mode "jac")."""
+def _inputs(mode, params, spots, strikes, maturities, is_call, mkt, groups):
+    """(C entry, mode number, launch count key, contiguous inputs) of a
+    cos_vg launch on CUDA tensors; raises on what the kernel does not
+    take. ``groups`` is computed when None."""
     dt, dev = params.dtype, params.device
     if dev.type != "cuda" or (mode, dt) not in _ENTRIES:
         raise ValueError(f"K2 takes float32/float64 and K3 float32 CUDA or "
@@ -98,18 +115,65 @@ def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
                          "inputs' device")
     ins = [t.contiguous() for t in ins] + [
         is_call.contiguous(), mkt.contiguous(), groups.contiguous()]
+    return symbol, mode_no, count, ins
+
+
+def _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms):
+    """The C entry and its argument tuple for a launch into ``price`` and
+    ``grad``."""
+    lanes, n_opt = price.shape
+    return kernel_build.entry("cos_vg", symbol, ARGTYPES), (
+        *(t.data_ptr() for t in ins), price.data_ptr(), grad.data_ptr(),
+        float(rate), float(q), float(L), lanes, n_opt, n_terms, mode_no,
+        torch.cuda.current_stream(price.device).cuda_stream)
+
+
+def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
+            n_terms, L, q, groups):
+    """Launch cos_vg on CUDA tensors: (price [L, n], grad [L, 13] in mode
+    "loss" or rows [L, n, 13] in mode "jac")."""
+    symbol, mode_no, count, ins = _inputs(mode, params, spots, strikes,
+                                          maturities, is_call, mkt, groups)
+    lanes, n_opt = strikes.shape
+    dt, dev = params.dtype, params.device
     price = torch.empty((lanes, n_opt), dtype=dt, device=dev)
     grad = torch.empty((lanes, 13) if mode_no == 0 else (lanes, n_opt, 13),
                        dtype=dt, device=dev)
     if lanes * n_opt == 0:
         return price, grad.zero_()
-    err = kernel_build.entry("cos_vg", symbol, ARGTYPES)(
-        *(t.data_ptr() for t in ins), price.data_ptr(), grad.data_ptr(),
-        float(rate), float(q), float(L), lanes, n_opt, n_terms, mode_no,
-        torch.cuda.current_stream(dev).cuda_stream)
-    kernel_build.check(err, count)
+    fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms)
+    kernel_build.check(fn(*args), count)
     LAUNCHES[count] += 1
     return price, grad
+
+
+def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
+                             is_call, mkt, n_terms: int, L: float, q: float,
+                             groups, price, grad):
+    """K2 bound once, for the fused L-BFGS trip: a launcher with no
+    arguments that prices ``params [L, 13]`` (rewritten in place between
+    launches) into the preallocated ``price [L, n]`` and ``grad [L, 13]``.
+    Every check of ``rows_value_and_grad`` runs here, once; CUDA tensors
+    only, at least one row."""
+    symbol, mode_no, count, ins = _inputs("loss", params, spots, strikes,
+                                          maturities, is_call, mkt, groups)
+    lanes, n_opt = strikes.shape
+    for name, t, shape in (("price", price, (lanes, n_opt)),
+                           ("grad", grad, (lanes, 13))):
+        if (t.shape != shape or t.dtype != params.dtype
+                or t.device != params.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous {params.dtype} "
+                             f"{shape} on {params.device}")
+    if n_opt == 0:
+        raise ValueError("K2 needs at least one option a lane")
+    if not params.is_contiguous():
+        raise ValueError("params must be contiguous: K2 reads it in place")
+    fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms)
+
+    def launch(_keep=(ins, price, grad)):
+        kernel_build.check(fn(*args), count)
+        LAUNCHES[count] += 1
+    return launch
 
 
 def rows_value_and_grad_plain(params, spots, rate, strikes, maturities,
@@ -176,8 +240,9 @@ def _feller_value_and_grad(params: torch.Tensor, weight: float):
     p = DHParams.from_vector(params)
     pen = feller_penalty(p, weight)
     grad = torch.zeros_like(params)
-    for (s, k, t), viol in (((3, 1, 2), p.sigma1**2 - 2.0 * p.kappa1 * p.theta1),
-                            ((8, 6, 7), p.sigma2**2 - 2.0 * p.kappa2 * p.theta2)):
+    for (s, k, t), viol in zip(FELLER_IDX, (
+            p.sigma1**2 - 2.0 * p.kappa1 * p.theta1,
+            p.sigma2**2 - 2.0 * p.kappa2 * p.theta2)):
         on = (viol > 0.0).to(params.dtype) * weight
         grad[:, s] = on * 2.0 * params[:, s]
         grad[:, k] = -on * 2.0 * params[:, t]
@@ -205,42 +270,181 @@ def _feller_jacobian(params: torch.Tensor, weight: float):
     return jac
 
 
+class BatchValueAndGrad:
+    """The search objective over ``[L, n]`` surfaces: ``vg(x [L, 13]) ->
+    (f [L], g [L, 13])`` in the dtype of the market prices, the pricing
+    value and gradient from K2 at that dtype, with the semantics of
+    autograd of ``calibration/loss.py::surface_loss`` per lane: invalid
+    prices give the sentinel ``config.bad_loss`` with a zero gradient, the
+    Feller penalty is added and gradients are in the unconstrained
+    coordinates. A call runs K2 and this host assembly
+    (``search_assembly_plain``); the object also holds the problem
+    (``spots``, ``strikes``, ``maturities``, ``is_call``, ``mkt``, their
+    maturity ``groups``, ``rate``, ``config``), from which it binds the
+    fused L-BFGS trip (``bind_trip``; ``rows`` and ``bind_rows`` price a
+    parameter tensor)."""
+
+    def __init__(self, spots, strikes, maturities, is_call, market_prices,
+                 rate, config: CalibrationConfig):
+        dt = market_prices.dtype
+        self.spots, self.strikes, self.maturities, self.mkt = (
+            t.to(dt) for t in (spots, strikes, maturities, market_prices))
+        self.is_call = is_call
+        self.rate = rate
+        self.config = config
+        self.groups = maturity_groups(self.maturities)   # fixed across trips
+
+    @property
+    def dtype(self):
+        return self.mkt.dtype
+
+    def _problem(self):
+        pc = self.config.pricer
+        return ((self.spots, self.rate, self.strikes, self.maturities,
+                 self.is_call, self.mkt, pc.n_terms, pc.trunc_L,
+                 pc.dividend_yield), self.groups)
+
+    def rows(self, params):
+        """K2 (or its plain version on the CPU): ``(price, g_price)``."""
+        problem, groups = self._problem()
+        return rows_value_and_grad(params, *problem, groups)
+
+    def bind_rows(self, params, price, grad):
+        """``bind_rows_value_and_grad`` on this problem."""
+        problem, groups = self._problem()
+        return bind_rows_value_and_grad(params, *problem, groups, price,
+                                        grad)
+
+    def __call__(self, x):
+        params = transform(x.to(self.dtype))
+        price, g_price = self.rows(params)
+        return search_assembly_plain(price, g_price, self.mkt, params,
+                                     self.config.feller_weight,
+                                     self.config.bad_loss)
+
+    def fused_trial(self, n_lanes: int, device) -> lb.FusedTrial:
+        """The fused entries' buffers and constants for ``n_lanes`` lanes
+        of this objective (``n_lanes`` must be its own)."""
+        dt = self.dtype
+        n = self.mkt.shape[1]
+        width, factor = torch_mean_order(n_lanes, n, dt)
+        new = lambda *shape: torch.empty(shape, dtype=dt, device=device)
+        return lb.FusedTrial(
+            params_try=new(n_lanes, lb.N_PARAMS), price=new(n_lanes, n),
+            g_price=new(n_lanes, lb.N_PARAMS), mkt=self.mkt.contiguous(),
+            weight=float(self.config.feller_weight),
+            bad_loss=float(self.config.bad_loss), exp_mask=EXP_MASK,
+            tanh_mask=TANH_MASK, feller=FELLER_IDX, mean_width=width,
+            mean_factor=factor)
+
+    def bind_trip(self, st, config: LBFGSConfig, status, plain: bool):
+        """The fused L-BFGS trip on this objective, bound once for the
+        engine's state ``st`` and ``status`` (``lbfgs_batched._bind_trip``):
+        on CUDA tensors (unless ``plain``) fused K4, K2 and fused K5, else
+        ``lbfgs_open_fused_plain``, ``rows`` and ``lbfgs_update_fused_plain``
+        in place. None where the fused kernels do not take this objective
+        (``lb.MAX_ROWS`` rows a lane or more): the engine then takes its
+        unfused trip around ``__call__``. Raises on anything else the
+        kernels do not take."""
+        n = self.mkt.shape[1]
+        if n >= lb.MAX_ROWS:
+            return None
+        trial = self.fused_trial(st.x.shape[0], st.x.device)
+        lb._check_fused(st, trial)
+        if st.x.device.type == "cuda" and not plain:
+            kernels = lb.TripKernels(st, config, status,
+                                     torch.empty_like(st.x), trial)
+            k2 = self.bind_rows(trial.params_try, trial.price, trial.g_price)
+
+            def trip():
+                kernels.open()
+                k2()
+                kernels.update()
+            return trip
+
+        def trip():
+            x_try = lb._open_plain_inplace(st, config, status)
+            params = transform(x_try)
+            price, g_price = self.rows(params)
+            f_try, g_try = search_assembly_plain(
+                price, g_price, trial.mkt, params, trial.weight,
+                trial.bad_loss)
+            lb._update_plain_inplace(st, x_try, f_try, g_try, config, status)
+        return trip
+
+
+def torch_mean_order(n_lanes: int, n: int, dtype):
+    """``(width, factor)``: how ATen's CUDA reduction computes
+    ``torch.mean(v, -1)`` for a contiguous ``[n_lanes, n]`` tensor with
+    n < 128 (from 128 on it vectorises its loads). ``width`` threads share
+    a row (``ReduceConfig::set_block_dimension`` at 512 threads a block
+    and a warp of 32); the sum is multiplied by ``factor``, the number of
+    outputs over the number of inputs rounded in ``dtype``. Fused K5 sums
+    a lane's rows in that order (``csrc/lbfgs_trip.cu``, mean)."""
+    pow2 = lambda v: 1 << (v.bit_length() - 1)
+    rows, lanes = pow2(n), (pow2(n_lanes) if n_lanes < 512 else 512)
+    width = min(rows, 32)
+    height = min(lanes, 512 // width)
+    width = min(rows, 512 // height)
+    real = np.float32 if dtype == torch.float32 else np.float64
+    return width, float(real(n_lanes) / real(n_lanes * n))
+
+
+def search_assembly_plain(price, g_price, mkt, params, weight: float,
+                          bad_loss: float):
+    """The search loss ``f [L]`` and its gradient in the unconstrained
+    coordinates ``g [L, 13]`` from K2's prices ``[L, n]`` and row-summed
+    gradient ``g_price [L, 13]`` at ``params = transform(x)``: the mean of
+    the rows' squared relative errors (0 on a row whose price is not finite
+    and positive; ``torch.mean``, whose order fused K5 follows on the
+    card), plus the Feller penalty, with a zero gradient at its kink;
+    ``bad_loss`` with a zero gradient if any row is invalid or the loss is
+    not finite; ``(g_price + pen_g) * dtransform/dx``, the derivative taken
+    from ``params`` (exp: itself, tanh: 1 - p^2, the bits of
+    ``dtransform_dx(x)``), and non-finite entries set to 0. The host
+    assembly of ``BatchValueAndGrad`` and the plain version of fused K5's
+    prologue."""
+    valid = torch.isfinite(price) & (price > 0.0)
+    rel = torch.where(valid, (price - mkt) / mkt, torch.zeros_like(mkt))
+    pen, pen_g = _feller_value_and_grad(params, weight)
+    loss = torch.mean(rel * rel, dim=-1) + pen
+    any_bad = torch.any(~valid, dim=-1)
+    bad = torch.full_like(loss, bad_loss)
+    loss = torch.where(any_bad, bad, loss)
+    loss = torch.where(torch.isfinite(loss), loss, bad)
+    dtr = torch.ones_like(params)
+    dtr[:, _EXP_IDX] = params[:, _EXP_IDX]
+    dtr[:, _TANH_IDX] = 1.0 - params[:, _TANH_IDX] * params[:, _TANH_IDX]
+    gx = (g_price + pen_g) * dtr
+    gx = torch.where(any_bad[:, None], torch.zeros_like(gx), gx)
+    gx = torch.where(torch.isfinite(gx), gx, torch.zeros_like(gx))
+    return loss, gx
+
+
+def lbfgs_open_fused_plain(st, config: LBFGSConfig):
+    """Plain fused K4: ``(state, x_try, params_try = transform(x_try))``."""
+    st, x_try = lb.lbfgs_open_plain(st, config)
+    return st, x_try, transform(x_try)
+
+
+def lbfgs_update_fused_plain(st, x_try, params_try, price, g_price, mkt,
+                             weight: float, bad_loss: float,
+                             config: LBFGSConfig):
+    """Plain fused K5: ``search_assembly_plain``, then
+    ``lbfgs_update_plain`` on its (f, g)."""
+    f_try, g_try = search_assembly_plain(price, g_price, mkt, params_try,
+                                         weight, bad_loss)
+    return lb.lbfgs_update_plain(st, x_try, f_try, g_try, config)
+
+
 def make_batch_value_and_grad(spots, strikes, maturities, is_call,
                               market_prices, rate,
-                              config: CalibrationConfig):
-    """``vg(x: [L, 13]) -> (f: [L], g: [L, 13])`` in the dtype of
-    ``market_prices`` (float32 or float64, K2 at that dtype) whose pricing
-    value and gradient come from K2, with the semantics of autograd of
-    ``calibration/loss.py::surface_loss`` per lane: invalid prices give the
-    sentinel ``config.bad_loss`` with a zero gradient, the Feller penalty
-    is added and gradients are in the unconstrained coordinates."""
-    dt = market_prices.dtype
-    spots, strikes, maturities, mkt = (
-        t.to(dt) for t in (spots, strikes, maturities, market_prices))
-    pc = config.pricer
-    weight, bad_loss = config.feller_weight, config.bad_loss
-    groups = maturity_groups(maturities)    # fixed across optimizer trips
-
-    def vg(x):
-        x = x.to(dt)
-        params = transform(x)
-        price, g_price = rows_value_and_grad(
-            params, spots, rate, strikes, maturities, is_call, mkt,
-            pc.n_terms, pc.trunc_L, pc.dividend_yield, groups)
-        valid = torch.isfinite(price) & (price > 0.0)
-        rel = torch.where(valid, (price - mkt) / mkt, torch.zeros_like(mkt))
-        pen, pen_g = _feller_value_and_grad(params, weight)
-        loss = torch.mean(rel * rel, dim=-1) + pen
-        any_bad = torch.any(~valid, dim=-1)
-        bad = torch.full_like(loss, bad_loss)
-        loss = torch.where(any_bad, bad, loss)
-        loss = torch.where(torch.isfinite(loss), loss, bad)
-        gx = (g_price + pen_g) * dtransform_dx(x)
-        gx = torch.where(any_bad[:, None], torch.zeros_like(gx), gx)
-        gx = torch.where(torch.isfinite(gx), gx, torch.zeros_like(gx))
-        return loss, gx
-
-    return vg
+                              config: CalibrationConfig) -> BatchValueAndGrad:
+    """The search objective ``vg(x: [L, 13]) -> (f: [L], g: [L, 13])`` in
+    the dtype of ``market_prices`` (float32 or float64, K2 at that dtype):
+    a ``BatchValueAndGrad``."""
+    return BatchValueAndGrad(spots, strikes, maturities, is_call,
+                             market_prices, rate, config)
 
 
 def make_batch_residual_jacobian(spots, strikes, maturities, is_call,

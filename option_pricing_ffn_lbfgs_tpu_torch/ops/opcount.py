@@ -24,7 +24,11 @@ count each input byte read once and each output byte written once:
     opening lane reads ``hist_len`` history pairs; K5 writes a history row
     where the lane stored a pair), and the arithmetic as the kernels write
     it, per coordinate and per pair. Both are bound by bytes by two orders
-    of magnitude.
+    of magnitude. In the fused mode (the calibration objective) K4 also
+    writes params_try with one exp or tanh a coordinate, and K5 reads K2's
+    prices and gradient sums, the market prices and params_try in place of
+    f_try and g_try, and assembles the loss (four operations a row, the
+    Feller terms and the chain rule).
   * K6/K7 (the LM trip, ``csrc/lm_trip.cu``): the same, from the state
     the launch sees (done lanes read their flag, and K6 copies their x; a
     live lane's K6 reads its m x d Jacobian and m residuals; K7 copies
@@ -146,9 +150,11 @@ def cos_price_work(params, spots, strikes, maturities, is_call, n_terms: int,
     return {"ops": ops, "bytes": nbytes, "effective_groups": int(n_eff.sum())}
 
 
-def lbfgs_open_work(st) -> Dict[str, float]:
+def lbfgs_open_work(st, fused: bool = False) -> Dict[str, float]:
     """Operations and bytes of one K4 launch on the state ``st``
-    (``ops/lbfgs_batched.py::_BState``), before the launch."""
+    (``ops/lbfgs_batched.py::_BState``), before the launch; ``fused``:
+    fused K4, which also writes params_try (an exp or tanh a coordinate,
+    identity for one)."""
     L, d = st.x.shape
     t = st.x.element_size()
     live = ~st.done
@@ -165,12 +171,17 @@ def lbfgs_open_work(st) -> Dict[str, float]:
               + pairs * (2 * d * t + t)           # history rows, rho
               + 4)                                # live count
     ops = pairs * (8 * d + 3) + n_open * (10 * d + 5) + n_move * 2 * d
+    if fused:
+        nbytes += L * d * t                       # params_try
+        ops += L * (d - 1)                        # exp / tanh
     return {"ops": ops, "bytes": nbytes}
 
 
-def lbfgs_update_work(before, after) -> Dict[str, float]:
+def lbfgs_update_work(before, after, n_opt: int = 0) -> Dict[str, float]:
     """Operations and bytes of one K5 launch that took the state
-    ``before`` to ``after``."""
+    ``before`` to ``after``; ``n_opt`` > 0: fused K5 on lanes of ``n_opt``
+    options, which reads K2's prices and gradient sums, the market prices
+    and params_try instead of f_try and g_try, and assembles the loss."""
     L, d = before.x.shape
     t = before.x.element_size()
     live = ~before.done
@@ -182,6 +193,11 @@ def lbfgs_update_work(before, after) -> Dict[str, float]:
                           + 4 * d * t + 10 * t + 28 + 5)    # writes
               + pairs * (2 * d * t + t))          # history row, rho
     ops = n_live * (13 * d + 60)
+    if n_opt:
+        nbytes += n_live * (2 * n_opt + 2 * d - d - 1) * t
+        ops += n_live * (4 * n_opt + 1          # rows, the mean
+                         + 11                    # Feller value
+                         + 12 + 4 + 2 * d)       # its gradient, chain rule
     return {"ops": ops, "bytes": nbytes}
 
 

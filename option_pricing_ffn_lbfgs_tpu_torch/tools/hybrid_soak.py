@@ -32,7 +32,7 @@ def soak(calls: int, surfaces: int, device) -> dict:
     dev = torch.device(device)
     surrogate = load_default_model()
     errors, walls = [], []
-    k4 = lbfgs_batched.LAUNCHES["lbfgs_open"]
+    k4 = lbfgs_batched.LAUNCHES["lbfgs_open_fused"]
     for i in range(calls):
         ds = generate_dataset(torch.Generator(dev).manual_seed(10_000 + i),
                               GeneratorConfig(n_samples=surfaces),
@@ -52,7 +52,7 @@ def soak(calls: int, surfaces: int, device) -> dict:
         walls.append(time.perf_counter() - t0)
     return {"calls": calls, "surfaces": surfaces,
             "error_word_set": len(errors), "errors": errors,
-            "k4_launches": lbfgs_batched.LAUNCHES["lbfgs_open"] - k4,
+            "k4_launches": lbfgs_batched.LAUNCHES["lbfgs_open_fused"] - k4,
             "mean_wall_s": sum(walls) / len(walls), "max_wall_s": max(walls),
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu")}

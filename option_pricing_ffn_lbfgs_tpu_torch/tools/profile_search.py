@@ -5,12 +5,13 @@
         [--batches 8,64,512,2048] [--k 64] [--n-terms 64] [--out FILE] \\
         [--device cuda]
 
-Four sections per batch size B, each over ``[B, S = 3]`` lanes of 15
+Five sections per batch size B, each over ``[B, S = 3]`` lanes of 15
 options at N COS terms (the search's shapes):
 
-  * ``scan_eval``: K chained calls of ``make_batch_value_and_grad``'s
+  * ``scan_eval``: K chained direct calls of ``make_batch_value_and_grad``'s
     value-and-grad, each folding its gradient back into x: K2 and its
-    host assembly, no optimizer bookkeeping;
+    host assembly (which the search's fused trip no longer runs), no
+    optimizer bookkeeping;
   * ``scan_bookkeep``: K chained ``_two_loop_direction`` calls
     (``ops/lbfgs_batched.py``) on a full 10-pair history: the plain
     two-loop direction, no pricer;
@@ -19,7 +20,11 @@ options at N COS terms (the search's shapes):
     two-loop on every lane (on CPU tensors, its plain version);
   * ``full_search``: ``calibrate_batch`` with ``maxeval`` capped at 160,
     reported per evaluation of the winner with the most (on the card every
-    trip is K4, K2 with its assembly, K5 and one host read).
+    trip is fused K4, K2, fused K5 and one host read);
+  * ``fused_trip``: K trips of the engine's bound fused trip
+    (``ops/lbfgs_batched.py::_bind_trip``) without the read:
+    ``fused_host_ms_per_trip`` is the host's time to issue one (three
+    ctypes calls), ``fused_busy_ms_per_trip`` the device's time on it.
 
 Each section's ``*_ms_per_*`` is the chained protocol's (CUDA events, the
 median of 3 trials; the first call, which builds or loads the kernels,
@@ -27,12 +32,23 @@ apart). Beside it, from one more run of the section: ``*_wall_ms_per_*``,
 the host's wall clock around it (after a synchronize), and
 ``*_busy_ms_per_*``, the device-busy time (the sum of the device-side
 entries of a ``torch.profiler`` window over it; null on the CPU, where no
-device is traced). For ``full_search`` that run is capped at K
-evaluations, which keeps the profiler's window to K trips. The gap
-between the wall and the busy time is the time the device waits on the
-host. ``eval_gflops`` divides K2's operations on
-the starts (``ops/opcount.py``) by ``scan_eval``'s time per trip. One JSON
-line per B; ``--out`` (no default) also writes them to a file.
+device is traced), and ``*_kernels_per_*``, the device entries the
+window recorded (kernels and copies) over the same count. For
+``full_search`` that run is capped at K evaluations, which keeps the
+profiler's window to K trips. The gap between the wall and the busy time
+is the time the device waits on the host. Run the tool in a process of
+its own: inside a process that had run for minutes (``chip_smoke.py``
+before it ran this tool in a subprocess) the profiler lost up to 20 of a
+window's device records (all 17 of ``scan_open``'s), which a fresh process
+keeps; the entry counts show such a loss. The ``scan_open`` and
+``fused_trip`` windows, whose counts are known (K + 1 and 3 K), are taken
+again when they recorded another count, up to 3 windows, and
+``open_profile_windows`` / ``fused_profile_windows`` say how many were
+taken (null on the CPU). ``eval_gflops`` divides K2's
+operations on the starts (``ops/opcount.py``) by ``scan_eval``'s time per
+trip. One JSON line per B; ``--out`` (no default) also writes them to a
+file, with ``launches``, each kernel's launch count over the tool's run
+(the wrappers' ``LAUNCHES``, from 0 in a fresh process).
 """
 from __future__ import annotations
 
@@ -46,11 +62,11 @@ import torch
 from ..calibration.calibrator import calibrate_batch
 from ..calibration.initial_guess import initial_guesses
 from ..calibration.transforms import transform
-from ..ops import opcount
+from ..ops import cos_kernel, loss_kernel, opcount
 from ..ops import lbfgs_batched as lb
 from ..ops.loss_kernel import make_batch_value_and_grad
 from ..utils.config import CalibrationConfig, LBFGSConfig, PricerConfig
-from ..utils.timing import (device_busy_ms, profile_trace, synchronize,
+from ..utils.timing import (device_entries, profile_complete, synchronize,
                             time_jitted)
 
 S = 3
@@ -58,19 +74,23 @@ M_HIST = 10
 RATE = 0.03
 
 
-def _wall_and_busy_ms(fn, dev):
-    """(host wall ms, device-busy ms or None) of one more run of
-    ``fn``."""
+def _wall_and_busy_ms(fn, dev, expect=None):
+    """(host wall ms, device-busy ms or None, device entries or None,
+    profiler windows or None) of one more run of ``fn``. With ``expect``,
+    the device entries a complete window holds, a window that recorded
+    another count is taken again (up to 3 in all)."""
     synchronize(dev)
     t0 = time.perf_counter()
     fn()
     synchronize(dev)
     wall = (time.perf_counter() - t0) * 1e3
     if dev.type != "cuda":
-        return wall, None
-    with profile_trace(device=dev) as prof:
-        fn()
-    return wall, device_busy_ms(prof)
+        return wall, None, None, None
+    prof, _, windows = profile_complete(
+        fn, lambda p: expect is None or device_entries(p)[1] == expect,
+        device=dev)
+    busy, n = device_entries(prof)
+    return wall, busy, n, windows
 
 
 def profile_batch(b: int, k: int, n_terms: int, device) -> dict:
@@ -146,14 +166,35 @@ def profile_batch(b: int, k: int, n_terms: int, device) -> dict:
     full_k = search(CalibrationConfig(pricer=cfg.pricer,
                                       lbfgs=LBFGSConfig(maxeval=k)))
 
+    # 5. the bound fused trip, K times from the bootstrapped state, without
+    # the read (done lanes hold, so later trips cost what the first did)
+    st5 = lb.init_state(x_flat, cfg.lbfgs.history)
+    status5 = torch.zeros(2, dtype=torch.int32, device=dev)
+    trip = lb._bind_trip(vg, st5, cfg.lbfgs, status5, plain=False)
+    trip()
+    lb.read_live(status5)
+
+    def fused_trips():
+        for _ in range(k):
+            trip()
+
+    synchronize(dev)
+    t0 = time.perf_counter()
+    fused_trips()
+    host_issue = (time.perf_counter() - t0) * 1e3 / k
+
     t_eval = time_jitted(scan_eval, repeats=3, chain=1, device=dev)
     t_dir = time_jitted(scan_bookkeep, repeats=3, chain=1, device=dev)
     t_open = time_jitted(scan_open, repeats=3, chain=1, device=dev)
     t_full = time_jitted(full, repeats=3, chain=1, device=dev)
     max_evals = int(full().n_evals.max())
     k_evals = int(full_k().n_evals.max())
-    walls = [_wall_and_busy_ms(fn, dev)
-             for fn in (scan_eval, scan_bookkeep, scan_open, full_k)]
+    # scan_open's window holds K K4 launches and the sum, fused_trips' 3 K
+    # launches; the others' counts are not fixed in advance
+    walls = [_wall_and_busy_ms(fn, dev, expect)
+             for fn, expect in ((scan_eval, None), (scan_bookkeep, None),
+                                (scan_open, k + 1), (full_k, None),
+                                (fused_trips, 3 * k))]
     per = lambda ms, n: None if ms is None else ms / n
     work = opcount.cos_vg_work(transform(x_flat), rep(spots), rep(bs),
                                rep(bm), rep(bc), rep(bp), n_terms, "loss")
@@ -175,6 +216,18 @@ def profile_batch(b: int, k: int, n_terms: int, device) -> dict:
         "open_busy_ms_per_trip": per(walls[2][1], k),
         "full_wall_ms_per_eval": per(walls[3][0], k_evals),
         "full_busy_ms_per_eval": per(walls[3][1], k_evals),
+        "fused_host_ms_per_trip": host_issue,
+        "fused_wall_ms_per_trip": per(walls[4][0], k),
+        "fused_busy_ms_per_trip": per(walls[4][1], k),
+        "open_profile_windows": walls[2][3],
+        "fused_profile_windows": walls[4][3],
+        **{f"{name}_kernels_per_{unit}": per(w[2], n)
+           for name, unit, n, w in (
+               ("eval", "trip", k, walls[0]),
+               ("bookkeep", "trip", k, walls[1]),
+               ("open", "trip", k, walls[2]),
+               ("full", "eval", k_evals, walls[3]),
+               ("fused", "trip", k, walls[4]))},
     }
 
 
@@ -202,7 +255,10 @@ def main(argv=None):
             json.dump({"device": (torch.cuda.get_device_name(dev)
                                   if dev.type == "cuda" else "cpu"),
                        "k": args.k, "n_terms": args.n_terms,
-                       "results": results}, f, indent=2)
+                       "results": results,
+                       "launches": {**cos_kernel.LAUNCHES,
+                                    **loss_kernel.LAUNCHES,
+                                    **lb.LAUNCHES}}, f, indent=2)
     return results
 
 

@@ -15,7 +15,8 @@ trials. On ``cuda`` the trials are timed with CUDA events; on the CPU
 (``device="cpu"``, for tests) by the host clock. The first call is timed
 apart as ``build_s``: it includes the kernels' nvcc build or the load of
 an already built library, where JAX's ``compile_s`` had the XLA compile.
-``profile_trace`` is a ``torch.profiler`` window and ``wall_timer`` a
+``profile_trace`` is a ``torch.profiler`` window, ``profile_complete``
+retakes one that lost its device records, and ``wall_timer`` is a
 host-clock bracket.
 """
 from __future__ import annotations
@@ -121,21 +122,23 @@ def time_jitted(fn: Callable, *args, repeats: int = 3, chain: int = 4,
     return Timing(build_s=build_s, steady_s=runs[len(runs) // 2], runs=runs)
 
 
-def device_busy_ms(prof) -> float:
-    """Milliseconds of device work (kernels, copies) in a finished
-    ``torch.profiler.profile``: the sum of its device-side entries' own
-    time."""
+def device_entries(prof):
+    """(milliseconds, count) of the device work (kernels, copies) in a
+    finished ``torch.profiler.profile``: the sum of its device-side
+    entries' own time, and how many there were."""
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
-    return sum(dev_us(e) for e in prof.key_averages()
-               if dev_us(e) > 0 and "CUDA" in str(e.device_type)) / 1e3
+    on_dev = [e for e in prof.key_averages()
+              if dev_us(e) > 0 and "CUDA" in str(e.device_type)]
+    return (sum(dev_us(e) for e in on_dev) / 1e3,
+            sum(e.count for e in on_dev))
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str] = None, device="cuda"):
     """A ``torch.profiler`` window over the host and, on ``cuda``, the
     card; yields the profiler (read ``key_averages()`` or
-    ``device_busy_ms`` after the block). With ``log_dir`` the Chrome trace
+    ``device_entries`` after the block). With ``log_dir`` the Chrome trace
     is written to ``log_dir/trace.json``."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
@@ -147,6 +150,20 @@ def profile_trace(log_dir: Optional[str] = None, device="cuda"):
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def profile_complete(fn: Callable, complete: Callable, device="cuda",
+                     windows: int = 3):
+    """``fn()`` under ``profile_trace``, the window taken again, up to
+    ``windows`` in all, until ``complete(prof)`` holds (torch.profiler has
+    lost all of a window's device records). Returns (the profiler, ``fn``'s
+    result, the windows taken)."""
+    for n in range(1, windows + 1):
+        with profile_trace(device=device) as prof:
+            out = fn()
+        if complete(prof):
+            break
+    return prof, out, n
 
 
 @contextlib.contextmanager

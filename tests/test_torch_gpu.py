@@ -714,19 +714,21 @@ def test_lbfgs_engine_f64_kernels_vs_plain(cuda):
     """The whole engine at float64 on K2<double>, maxeval = 30, 64
     surfaces x 3 starts: K4/K5 against the plain pair run on the card,
     equal evaluation and iteration counts on every lane and x to 1e-7 (the
-    bar tests/test_torch_optim.py holds the engine to against JAX)."""
+    bar tests/test_torch_optim.py holds the engine to against JAX). The
+    objective is called as a plain function, so the trip is unfused."""
     from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
     from option_pricing_ffn_lbfgs_tpu_torch.utils.config import LBFGSConfig
     vg, x0 = _f64_search_lanes(cuda, 64, 3)
-    rep = trip_check.check_engine(vg, x0, LBFGSConfig(maxeval=30))
+    rep = trip_check.check_engine(lambda x: vg(x), x0,
+                                  LBFGSConfig(maxeval=30))
     assert rep["n_evals_equal"] and rep["n_iters_equal"], rep
     assert rep["x_rel"] <= 1e-7 and rep["n_evals_max"] == 30, rep
 
 
 @pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
 def test_lbfgs_launches_equal_k2(cuda, dt):
-    """calibrate_batch on 8 surfaces: every trip launches K4, K2 and K5
-    once, at the working precision."""
+    """calibrate_batch on 8 surfaces: every trip launches fused K4, K2 and
+    fused K5 once, at the working precision, and no unfused K4/K5."""
     from option_pricing_ffn_lbfgs_tpu_torch.ops import lbfgs_batched
     rng = np.random.default_rng(1)
     true = rng.uniform(LO, HI, (8, 13))
@@ -745,7 +747,86 @@ def test_lbfgs_launches_equal_k2(cuda, dt):
     suffix = "_f64" if dt == F64 else ""
     k2 = got["cos_vg_loss" + suffix]
     assert k2 > 0
-    assert got["lbfgs_open" + suffix] == got["lbfgs_update" + suffix] == k2
+    assert (got["lbfgs_open_fused" + suffix]
+            == got["lbfgs_update_fused" + suffix] == k2)
+    assert got["lbfgs_open" + suffix] == got["lbfgs_update" + suffix] == 0
+
+
+# The fused trip of the calibration objective (fused K4, K2, fused K5)
+# against its fused plain pair on the card, in bits (tools/trip_check.py):
+# the main path's widths, then rows a lane that put torch.mean's order
+# (fused K5's mean) at each block width from 1 to 64.
+FUSED_SHAPES = [(1, 15), (15, 15), (1536, 15), (1537, 17), (1, 1), (2, 40),
+                (3, 64), (1, 100), (7, 127), (1536, 33)]
+
+
+@pytest.mark.parametrize("n_lanes,n_opt", FUSED_SHAPES,
+                         ids=[f"L{a}-n{b}" for a, b in FUSED_SHAPES])
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lbfgs_fused_trip_matches_plain(cuda, dt, n_lanes, n_opt):
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    rep = trip_check.check_fused_trip(n_lanes, dt, cuda, 11 + n_lanes,
+                                      n_opt=n_opt)
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lbfgs_fused_search_equals_host_assembly(cuda, dt):
+    """A search of 64 surfaces x 3 starts to its end (maxeval 160) on the
+    fused trip and on the unfused trip around the objective's host
+    assembly: the same computation in the same order, so every lane ends
+    with the same bits and evaluation count."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.config import LBFGSConfig
+    obj, x0 = trip_check.search_lanes(64, 5, cuda, dtype=dt)
+    rep = trip_check.route_sensitivity(obj, x0, LBFGSConfig(maxeval=160))
+    assert rep["x_differs"] == rep["n_evals_differ"] == 0, rep
+
+
+@pytest.mark.parametrize("d", [30, 64])
+@pytest.mark.parametrize("dt", [F64, F32], ids=["double", "float"])
+def test_lbfgs_trip_wide_lanes_match_plain(cuda, dt, d):
+    """K4/K5 at 2 and 4 coordinates a thread, in bits."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    rep = trip_check.check_trip(1537, dt, cuda, 3 + d, d=d)
+    assert rep["ok"], rep
+    assert not any(sum(part["bits_differ"].values())
+                   for part in (rep["open"], rep["update"])), rep
+
+
+def test_lbfgs_fused_search_kernels_vs_plain(cuda):
+    """A float32 search of 64 surfaces x 3 starts, maxeval = 40, on fused
+    K4, K2, fused K5 against the fused plain pair around the same K2: x
+    and f in bits, equal counts."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    from option_pricing_ffn_lbfgs_tpu_torch.utils.config import LBFGSConfig
+    obj, x0 = trip_check.search_lanes(64, 3, cuda)
+    rep = trip_check.check_engine(obj, x0, LBFGSConfig(maxeval=40))
+    assert rep["n_evals_equal"] and rep["n_iters_equal"], rep
+    assert rep["x_bits_differ"] == rep["f_bits_differ"] == 0, rep
+    assert rep["n_evals_max"] == 40, rep
+
+
+def test_lbfgs_fused_corrupt_index_raises_on_card(cuda):
+    """The fused kernels check the circular indices as the unfused ones:
+    the lane is left as it is and the loop's read raises naming it."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import lbfgs_batched as lb
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    cfg = trip_check.TRIP_CONFIG
+    st, trial = trip_check.random_fused(16, F64, cuda, 4, cfg)
+    st.done[:] = False
+    st.head[5] = cfg.history
+    before = trip_check.clone_state(st)
+    status = torch.zeros(2, dtype=torch.int32, device=cuda)
+    x_try = torch.empty_like(st.x)
+    kernels = lb.TripKernels(st, cfg, status, x_try, trial)
+    kernels.open()
+    kernels.update()
+    assert torch.equal(x_try[5], before.x[5])
+    for name, a, b in zip(lb._BState._fields, before, st):
+        assert torch.equal(a[5], b[5]), name
+    with pytest.raises(RuntimeError, match="lane 5"):
+        lb.read_live(status)
 
 
 def test_lbfgs_corrupt_index_raises_on_card(cuda):

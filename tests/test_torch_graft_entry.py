@@ -10,7 +10,8 @@
     run once at a tiny size: their JSON keys are those of the JAX drivers'
     lines and of the files in ``results/`` (``profile_search`` adds its six
     wall and busy numbers), and no default output path lies in
-    ``<repo>/results``.
+    ``<repo>/results``; the profiler window that ``profile_search``
+    retakes when it lost records (``utils/timing.py::profile_complete``).
 """
 import importlib.util
 import json
@@ -24,6 +25,7 @@ import __graft_entry__ as jax_graft
 from option_pricing_ffn_lbfgs_tpu_torch.tools import (
     bench_raw_draws, bench_scaling, graft_entry, make_results,
     profile_search)
+from option_pricing_ffn_lbfgs_tpu_torch.utils import timing
 
 REPO = Path(__file__).resolve().parent.parent
 RESULTS = REPO / "results"
@@ -75,13 +77,35 @@ def test_profile_search_twin(tmp_path):
              "bookkeep_wall_ms_per_trip", "bookkeep_busy_ms_per_trip",
              "open_ms_per_trip", "open_wall_ms_per_trip",
              "open_busy_ms_per_trip", "full_wall_ms_per_eval",
-             "full_busy_ms_per_eval"}
+             "full_busy_ms_per_eval", "fused_host_ms_per_trip",
+             "fused_wall_ms_per_trip", "fused_busy_ms_per_trip",
+             "eval_kernels_per_trip", "bookkeep_kernels_per_trip",
+             "open_kernels_per_trip", "full_kernels_per_eval",
+             "fused_kernels_per_trip", "open_profile_windows",
+             "fused_profile_windows"}
     (row,) = rows
     assert set(row) == jax_keys | added
     assert row["lanes"] == 6 and 0 < row["winner_max_evals"] <= 160
     # no device is traced on the CPU
-    assert all(row[k] is None for k in added if "busy" in k)
-    assert set(_json(out)) == {"device", "k", "n_terms", "results"}
+    assert all(row[k] is None for k in added
+               if "busy" in k or "kernels" in k or "windows" in k)
+    written = _json(out)
+    assert set(written) == {"device", "k", "n_terms", "results", "launches"}
+    # the CPU runs the plain versions, which launch nothing
+    assert written["launches"] and not any(written["launches"].values())
+
+
+def test_profile_complete_retakes_incomplete_windows():
+    calls, verdicts = [], iter([False, True])
+    prof, out, n = timing.profile_complete(
+        lambda: calls.append(1) or len(calls), lambda p: next(verdicts),
+        device="cpu")
+    assert (out, n, len(calls)) == (2, 2, 2)
+    assert prof.key_averages() is not None
+    # never complete: three windows, then the last one is returned
+    prof, out, n = timing.profile_complete(lambda: calls.append(1),
+                                           lambda p: False, device="cpu")
+    assert (out, n, len(calls)) == (None, 3, 5)
 
 
 def test_bench_raw_draws_twin(tmp_path):

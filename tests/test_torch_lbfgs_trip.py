@@ -289,6 +289,18 @@ def test_trip_work_counts():
     assert w3["bytes"] - w0["bytes"] == 3 * (2 * 13 + 1) * 8
     for w in (w0, w3):
         assert opcount.bound_ms(w, F64)[1] == "bytes"
+    # The fused modes: K4 also writes params_try on every lane; K5 reads
+    # price and mkt (n_opt each), g_price and params_try instead of f_try
+    # and g_try on a live lane, and nothing more on a done one.
+    assert (opcount.lbfgs_open_work(st, fused=True)["bytes"]
+            - w3["bytes"]) == 4 * 13 * 8
+    live = opcount.lbfgs_update_work(st, st)
+    fused = opcount.lbfgs_update_work(st, st, n_opt=15)
+    assert fused["bytes"] - live["bytes"] == 4 * (2 * 15 + 13 - 1) * 8
+    assert fused["ops"] > live["ops"]
+    st.done[:] = True
+    assert opcount.lbfgs_update_work(st, st, n_opt=15)["bytes"] == 4 + 4
+    assert opcount.bound_ms(fused, F64)[1] == "bytes"
 
 
 @pytest.mark.parametrize("fault", ["int64_head", "float16", "strided_g",
