@@ -39,8 +39,15 @@ Phases:
      and double; accept and reject, every stopping test, bootstrap and
      done lanes, no factor from a NaN in J and from a negative pivot,
      non-finite residuals) against the plain pair on the card, in bits;
-     the polish's LM on K1<double> + K3 (512 surfaces x 3 starts, stage
-     A's maxiter 10) kernels against the plain pair, in bits;
+     the fused K6/K7 of the polish's objective against their fused plain
+     pair, in bits (the same lanes; fused K6 after and on the bootstrap
+     trip; fused K7 on seeded K1 prices and K3 rows with the sentinel,
+     each Feller factor above, on and below its bound at both precisions,
+     NaN/inf Jacobian rows, a negative chain-rule factor); the polish's LM
+     (512 surfaces x 3 starts, stage A's maxiter 10) on the unfused trip
+     around the host assembly and on the fused trip, kernels against the
+     plain pair, in bits; the whole polish (POLISH_LM) on the fused trip
+     against the host-assembled one: 0 lanes apart, the same trips;
   6. the slice, bench twin: tools/bench.py's 6 problem sets x 5 surfaces
      (bench.py's recipe, truths from the in-process host pricer), each
      calibrated once by calibrate_batch_mixed with 3 starts (the launch
@@ -53,7 +60,8 @@ Phases:
      (accuracy pooled over four such sets); then torch.profiler over one
      such call (device busy, K2 + K3 share, K4-K7; at most 21,000 device
      kernels and copies, checked); an LM trip's ms at 1536 lanes and at a
-     32-lane wave against its evaluation alone; a search trip's ms at 1536
+     32-lane wave, fused and around the host assembly, against the
+     evaluation alone; a search trip's ms at 1536
      lanes against K2 alone; how many of 1536 search lanes end elsewhere
      when only the loss's rounding changes (float32 and float64);
   8. each kernel's time against its plain version and its bound (the
@@ -62,7 +70,9 @@ Phases:
      (torch.profiler), K6 beside torch.linalg.cholesky_ex +
      torch.cholesky_solve on the same damped matrices (library_ms); the
      fused K4/K5 through the engine's binding (ops/lbfgs_batched.py::
-     TripKernels) and alone, float at 1536 lanes and double at 15;
+     TripKernels) and alone, float at 1536 lanes and double at 15; the
+     fused K6/K7 through theirs (ops/levenberg_marquardt.py::
+     LMTripKernels) and alone at 1536 lanes;
   9. the generator: generate_dataset for 5000 surfaces at float64
      (K1<double>, N = 128) and with use_pallas (K1<float>), checked against
      the plain pricer, the Feller cap, the ranges and the noise; K1 timed
@@ -84,7 +94,9 @@ Phases:
      (every surface beats its FFN-only error, mean <= 0.03 %); stage walls,
      epochs, ms per train step and samples/s, the device busy share over
      50 train steps (torch.profiler); one dropout-free epoch of fit on the
-     card against the CPU from the same init (val loss within 1e-3);
+     card against the CPU from the same init (val loss within 1e-3); each
+     check after the fine-tune prints its value, its limit and the margin
+     first (a "[14] check" line);
  15. the benchmark's other paths, on the bench sets: tools/bench.py's
      run("float64") (K2<double>; one timing trial), tools/error_ablation.py's
      five rows beside the JAX package's record, calibrate_batch_mixed with
@@ -113,22 +125,26 @@ Every phase prints its wall. Each main-path run (phases 6, 7, 9, 12, 13,
 read just after; every kernel it should run must have launched, fused K4
 and fused K5 must have launched as often as K2 at each precision (every
 L-BFGS trip of the calibration objective is fused K4, K2, fused K5) and
-unfused K4 as often as unfused K5, and K6 and K7 as often as K3 (every
-LM trip is K6, K3, K7, the bootstrap trip too; phase 15's lm_minimize,
-whose Jacobian is jacfwd, excepted: there K6 = K7). Phase 16's
+unfused K4 as often as unfused K5, K6 as often as K7 and fused K6 as
+often as fused K7, and K6 and fused K6 together as often as K3 (every LM
+trip of the polish is fused K6, K1<double>, K3, fused K7, the bootstrap
+trip too; phase 15's lm_minimize, whose Jacobian is jacfwd, excepted:
+there K6 = K7). Phase 16's
 tools/profile_search.py runs in a process of its own, whose launch
 counts start at 0 and come back in its output file; it launches K2 and
 unfused K4 outside a trip (its scan_eval and scan_open), so there only
 fused K4 = fused K5 is held. Phase 2 fails on ptxas spill stores of K1,
-K4, K5, K6 or K7. The per-kernel record's "launches" is the sum over
+K4, K5, K6 or K7 (fused modes included). The per-kernel record's "launches" is the sum over
 those runs, with the launches of phase 16's sharded ranks and of
 tools/profile_search.py read from their JSON. Any failure exits non-zero. The last line is the JSON device
 record; the line before it is the per-kernel JSON record.
 """
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
+import logging
 import os
 import re
 import subprocess
@@ -198,8 +214,9 @@ def main():
         """Run one main path with the launch counts zeroed just before and
         read just after; every kernel in ``expect`` must have launched,
         fused K4 and fused K5 as often as K2 at each precision and unfused
-        K4 as often as unfused K5, K6 as often as K7 at each precision and
-        (``lm_k3``) their sum as often as K3."""
+        K4 as often as unfused K5, K6 as often as K7 at each precision,
+        fused K6 as often as fused K7 and (``lm_k3``) the K6 launches
+        together as often as K3."""
         for counts in all_counts:
             for k in counts:
                 counts[k] = 0
@@ -221,9 +238,11 @@ def main():
                   f"{label}: K4{sfx} and K5{sfx} launches differ")
             check(got["lm_open" + sfx] == got["lm_update" + sfx],
                   f"{label}: K6{sfx} and K7{sfx} launches differ")
+        check(got["lm_open_fused_f64"] == got["lm_update_fused_f64"],
+              f"{label}: fused K6 and fused K7 launches differ")
         check(not lm_k3 or got["lm_open"] + got["lm_open_f64"]
-              == got["cos_vg_jac"], f"{label}: K6/K7 launches differ from "
-              "K3's")
+              + got["lm_open_fused_f64"] == got["cos_vg_jac"],
+              f"{label}: K6/K7 launches differ from K3's")
         for k, v in got.items():
             path_launches[k] = path_launches.get(k, 0) + v
         path_launches_last.clear()
@@ -280,11 +299,13 @@ def main():
                         fused = ", fused" if t.group(4) == "1" else ""
                         entry = (f" {t.group(1)}<{kind}, K={t.group(3)}"
                                  f"{fused}>")
-                    t = re.search(r"(lm_(?:open|update)_kernel)I([fd])E",
-                                  m.group(1))
+                    t = re.search(
+                        r"(lm_(?:open|update)_kernel)I([fd])Lb([01])E",
+                        m.group(1))
                     if t:
                         kind = "float" if t.group(2) == "f" else "double"
-                        entry = f" {t.group(1)}<{kind}>"
+                        fused = ", fused" if t.group(3) == "1" else ""
+                        entry = f" {t.group(1)}<{kind}{fused}>"
                 if "registers" in line or "spill" in line:
                     print(f"[2] {name}{entry}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores", line)
@@ -296,14 +317,15 @@ def main():
                     lm_spills.append(int(m.group(1)))
     print(f"[2] cos_price spill stores per entry: {k1_spills} B; "
           f"lbfgs_trip (K4/K5 x float/double x 1, 2, 4 coordinates a "
-          f"thread, and fused at 1): {trip_spills} B; lm_trip (K6/K7 x float/double): "
-          f"{lm_spills} B")
+          f"thread, and fused at 1): {trip_spills} B; lm_trip (K6/K7 x "
+          f"float/double, and fused at double): {lm_spills} B")
     check(k1_spills and not any(k1_spills),
           "K1 spills registers (ptxas reports spill stores)")
     check(trip_spills and not any(trip_spills),
           "K4/K5 spill registers (ptxas reports spill stores)")
-    check(lm_spills and not any(lm_spills),
-          "K6/K7 spill registers (ptxas reports spill stores)")
+    check(len(lm_spills) == 6 and not any(lm_spills),
+          "K6/K7 spill registers (ptxas reports spill stores), or the "
+          "fused K6/K7 were not built")
 
     # -------------------------------------------------------------- 3 K1 --
     lap(3)
@@ -996,16 +1018,49 @@ def main():
                   f"L={n_lanes} {dt}")
             check(n_lanes != 1536 or all(rep["coverage"].values()),
                   "the seeded LM states miss a branch")
-    # The polish's LM on K1<double> + K3: kernels against the plain pair.
-    lm_res, lm_jac, lm_x0 = lm_trip_check.polish_lanes(512, 5, dev)
+        # The fused K6/K7 of the polish's objective (double) against their
+        # fused plain pair, through LMTripKernels.
+        rep = lm_trip_check.check_trip_fused(n_lanes, dev, 9 + n_lanes)
+        for part in ("open", "open_boot", "update"):
+            key = ("lm_update_fused_f64" if part == "update"
+                   else "lm_open_fused_f64")
+            record[key]["max_abs_err"] = max(record[key]["max_abs_err"],
+                                             rep[part]["max_abs_err"])
+            bad = {k: v for k, v in rep[part]["bits_differ"].items() if v}
+            print(f"[5c] fused K{7 if part == 'update' else 6} ({part}) "
+                  f"L={n_lanes}: entries whose bits differ {bad or 'none'}; "
+                  f"largest |kernel - plain| {rep[part]['max_abs_err']:.3e}")
+        print(f"[5c]   fused: done lanes changed "
+              f"{rep['done_lanes_changed']}, live (kernel, plain) "
+              f"{rep['live']}" + (f"; branches {json.dumps(rep['coverage'])}"
+                                  if n_lanes == 1536 else ""))
+        check(rep["ok"], f"fused K6/K7 disagree with the fused plain pair "
+              f"at L={n_lanes}")
+        check(n_lanes != 1536 or all(rep["coverage"].values()),
+              "the seeded fused LM states miss a branch")
+    # The polish's LM on K1<double> + K3: kernels against the plain pair,
+    # on the unfused trip around the host assembly and on the fused trip;
+    # then the whole polish on the fused trip against the host assembly's.
+    lm_obj, lm_x0 = lm_trip_check.polish_objective(512, 5, dev)
+    lm_res, lm_jac = lm_obj
     stage_a = dataclasses.replace(calibrator.POLISH_LM, maxiter=10)
-    eng = lm_trip_check.check_engine(lm_res, lm_jac, lm_x0, stage_a)
-    print(f"[5c] LM engine on K1<double> + K3, 512 surfaces x 3 starts, "
-          f"maxiter 10, kernels vs plain pair: {json.dumps(eng)} (x in "
-          f"bits)")
-    check(eng["n_evals_equal"] and eng["n_iters_equal"]
-          and eng["converged_equal"] and eng["x_bits_differ"] == 0,
-          "the LM engine on K6/K7 departs from the plain pair")
+    for label, fns in (("host assembly", (lm_res, lm_jac)),
+                       ("fused", (lm_obj, lm_obj.jac))):
+        eng = lm_trip_check.check_engine(*fns, lm_x0, stage_a)
+        print(f"[5c] LM engine on K1<double> + K3 ({label} trip), 512 "
+              f"surfaces x 3 starts, maxiter 10, kernels vs plain pair: "
+              f"{json.dumps(eng)} (x in bits)")
+        check(eng["n_evals_equal"] and eng["n_iters_equal"]
+              and eng["converged_equal"] and eng["x_bits_differ"] == 0,
+              f"the LM engine on K6/K7 ({label}) departs from the plain "
+              "pair")
+    route = lm_trip_check.route_check(lm_obj, lm_x0, calibrator.POLISH_LM)
+    print(f"[5c] the polish (POLISH_LM), 512 x 3, fused trip vs host "
+          f"assembly: {json.dumps(route)}")
+    check(route["n_evals_equal"] and route["n_iters_equal"]
+          and route["converged_equal"] and route["x_bits_differ"] == 0
+          and route["f_rel"] == 0.0,
+          "the fused polish parts from the host-assembled one")
 
     # ------------------------------------------------- 6 slice, bench twin --
     lap(6)
@@ -1118,7 +1173,27 @@ def main():
         return out, timer.ms
 
     timed(slice_cfg)                   # warm-up at 1536 lanes
+    # The LM engine's host reads of its live count over the driven call:
+    # one a trip, as many as the fused K6 launches.
+    lm_reads, read_live = [0], lmq.read_live
+
+    def counted_read(status):
+        lm_reads[0] += 1
+        return read_live(status)
+    lmq.read_live = counted_read
     out, wave_ms = drive(7, lambda: timed(slice_cfg), all4)
+    lmq.read_live = read_live
+    print(f"[7] LM trips: fused K6 {path_launches_last['lm_open_fused_f64']}"
+          f", K1<double> {path_launches_last['cos_price_f64']}, K3 "
+          f"{path_launches_last['cos_vg_jac']}, fused K7 "
+          f"{path_launches_last['lm_update_fused_f64']}, host reads "
+          f"{lm_reads[0]}")
+    check(lm_reads[0] == path_launches_last["lm_open_fused_f64"]
+          == path_launches_last["cos_price_f64"]
+          == path_launches_last["cos_vg_jac"] > 0
+          and path_launches_last["lm_open_f64"] == 0,
+          "a polish trip is not fused K6, K1<double>, K3, fused K7 and one "
+          "read")
     waves = list(calibrator.WAVE_LANES)
     out1, one_ms = timed(one_stage)
     _, wave_ms_b = timed(slice_cfg)
@@ -1178,19 +1253,38 @@ def main():
           "call: the fused search trip should leave at most 21,000")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
         print(f"[7]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
-    # An LM trip of the polish (K6, K1<double> and K3 with their assembly,
-    # K7, the read): stage A's 1536 lanes, and 32 lanes at a wave's budget
-    # of 16 iterations, against the evaluation alone (CUDA events).
+    # An LM trip of the polish, fused (fused K6, K1<double>, K3, fused K7,
+    # the read) and around the host assembly (K6, K1<double> and K3 with
+    # their assembly, K7, the read), in turns: stage A's 1536 lanes, and 32
+    # lanes at a wave's budget of 16 iterations, against the evaluation
+    # alone with the host assembly (CUDA events; a run's binding and result
+    # included, divided over its trips).
     for n_surf, n_starts, lm_cfg in (
             (512, 3, stage_a),
             (32, 1, dataclasses.replace(calibrator.POLISH_LM, maxiter=16))):
-        tm = lm_trip_check.trip_ms(
-            *lm_trip_check.polish_lanes(n_surf, 5, dev, n_starts), lm_cfg)
-        print(f"[7] LM trip at {tm['lanes']} lanes ({tm['trips']} trips): "
-              f"{tm['trip_ms']:.3f} ms a trip, of which the evaluation "
-              f"(K1<double> + K3 and their assembly) {tm['evaluation_ms']:.3f}"
-              f" ms, K6 + K7 + the read {tm['rest_ms']:.3f} ms (CUDA "
-              f"events)")
+        obj_t, x0_t = lm_trip_check.polish_objective(n_surf, 5, dev,
+                                                     n_starts)
+        res_t, jac_t = obj_t
+        for label, fns in (("host assembly", (res_t, jac_t)),
+                           ("fused", (obj_t, obj_t.jac)),
+                           ("fused", (obj_t, obj_t.jac)),
+                           ("host assembly", (res_t, jac_t))):
+            tm = lm_trip_check.trip_ms(*fns, x0_t, lm_cfg)
+            print(f"[7] LM trip at {tm['lanes']} lanes, {label} "
+                  f"({tm['trips']} trips): {tm['trip_ms']:.4f} ms a trip; "
+                  f"the evaluation with the host assembly (K1<double> + K3) "
+                  f"{tm['evaluation_ms']:.4f} ms (CUDA events)")
+        # A bound trip in a steady state, every lane live: what a trip
+        # costs once the run's binding is paid, and what holds it.
+        for label, fns in (("fused", (obj_t, obj_t.jac)),
+                           ("host assembly", (res_t, jac_t))):
+            tm = lm_trip_check.steady_trip_ms(*fns, x0_t)
+            print(f"[7] LM trip at {tm['lanes']} lanes, {label}, bound, "
+                  f"steady: {tm['trip_ms']:.4f} ms a trip with its read; "
+                  f"host issue {tm['host_issue_ms']:.4f} ms; device busy "
+                  f"{tm['device_busy_ms']:.4f} ms in {tm['records']:.1f} "
+                  f"records a trip; by kernel "
+                  f"{json.dumps({k: round(v, 4) for k, v in tm['kernel_ms'].items()})}")
     # A search trip (fused K4, K2, fused K5, the read) at the search's 1536
     # lanes against K2 alone (CUDA events).
     tm = trip_check.search_trip_ms(search_obj, search_x0,
@@ -1329,6 +1423,62 @@ def main():
             for kind, ms in alone.items():
                 record["lm_" + kind + sfx]["kernel_alone_ms"] = ms
             record["lm_open" + sfx]["library_ms"] = lib_ms
+
+    # The fused K6/K7 through the engine's binding (LMTripKernels: one
+    # prepared ctypes call a launch) against the fused plain versions,
+    # their bound and (K6) the library route, at the polish's 1536 lanes on
+    # its state after the bootstrap trip, as above; fused K7 on K1's prices
+    # and K3's rows at the parameters fused K6 wrote, with the cost set
+    # back to +inf before each launch.
+    obj8, x8 = lm_trip_check.polish_objective(512, 5, dev)
+    res8, jac8 = obj8
+    st = lmq.init_state(x8, 17, never)
+    st.r.copy_(res8(x8))
+    st.J.copy_(jac8(x8))
+    st.cost.copy_(lmq.trial_cost(st.r))
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    trial = obj8.fused_trial(x8.shape[0], dev)
+    x_try = torch.empty_like(st.x)
+    lm_bound = lmq.LMTripKernels(st, never, status, x_try, trial)
+    kernel_vs_plain(
+        "[8] lm_open_fused_f64 L=1536 m=17 d=13 (all live; the binding):",
+        "lm_open_fused_f64", lm_bound.open,
+        lambda: lmq.lm_open_fused_plain(st, never, False),
+        opcount.lm_open_fused_work(st), f64, True)
+    alone = {"open": alone_ms("lm_open_kernel", lm_bound.open)}
+    A, g = lmq.damped_normal_equations(st.J, st.r, st.lam)
+    lib = lambda: torch.cholesky_solve(
+        g[..., None], torch.linalg.cholesky_ex(A)[0])
+    record["lm_open_fused_f64"]["library_ms"] = min(cuda_time_ms(lib),
+                                                    cuda_time_ms(lib))
+    lm_bound.open()
+    trial.price.copy_(obj8.prices(trial.params64))
+    trial.jac.copy_(obj8.rows(trial.params32))
+    r_fused, _ = loss_kernel.polish_assembly_plain(
+        trial.price, trial.jac, trial.mkt, trial.params64, trial.params32,
+        trial.weight, trial.bad_loss)
+    inf = torch.full_like(st.cost, float("inf"))
+    st.cost.copy_(inf)
+    before = lm_trip_check.clone_state(st)
+
+    def k7_fused():
+        st.cost.copy_(inf)
+        lm_bound.update()
+    kernel_vs_plain(
+        "[8] lm_update_fused_f64 L=1536 (all accept; the binding):",
+        "lm_update_fused_f64", k7_fused,
+        lambda: lmq.lm_update_fused_plain(
+            before, x_try, trial.params64, trial.params32, trial.price,
+            trial.jac, trial.mkt, trial.weight, trial.bad_loss, never),
+        opcount.lm_update_fused_work(before, r_fused, 15), f64, True)
+    alone["update"] = alone_ms("lm_update_kernel", k7_fused)
+    check(not bool(st.done.any()), "fused K7 timing state: a lane finished")
+    print(f"[8]   fused K6/K7 alone (torch.profiler, 20 launches) L=1536: "
+          f"K6 {alone['open']:.5f} ms, K7 {alone['update']:.5f} ms; "
+          f"cholesky_ex + cholesky_solve "
+          f"{record['lm_open_fused_f64']['library_ms']:.4f} ms")
+    for kind, ms in alone.items():
+        record[f"lm_{kind}_fused_f64"]["kernel_alone_ms"] = ms
 
     # The fused K4/K5 through the engine's binding (TripKernels: one
     # prepared ctypes call a launch) against the fused plain versions and
@@ -1644,9 +1794,29 @@ def main():
     from option_pricing_ffn_lbfgs_tpu_torch.tools import train_pipeline
     from option_pricing_ffn_lbfgs_tpu_torch.utils import checkpoint
     card = f"({smi})"
+
+    def margin(what, value, limit, spare):
+        """One line before a check after the fine-tune: its value, its
+        limit and how far the value is inside it (``spare``; <= 0
+        fails)."""
+        print(f"[14] check {what}: value {value}, limit {limit}, margin "
+              f"{spare}", flush=True)
+
+    class Dropped(logging.Handler):
+        """The rows fit() drops as non-finite, from its warning."""
+        rows = []
+
+        def emit(self, rec):
+            if rec.getMessage().startswith("fit(): dropping"):
+                self.rows.append(rec.getMessage())
+    drop_log = logging.getLogger(
+        "option_pricing_ffn_lbfgs_tpu_torch.surrogate.train")
+    dropped = Dropped()
+    drop_log.addHandler(dropped)
     with tempfile.TemporaryDirectory() as tmp:
         res = drive(14, lambda: train_pipeline.train_pipeline(
             tmp, n_pretrain=100_000, n_finetune=1000), all4)
+        drop_log.removeHandler(dropped)
         h_pre, h_fine = res.history["pretrain"], res.history["finetune"]
         best_pre = min(h_pre["val_loss"])
         steps_pre = len(h_pre["val_loss"]) * (int(100_000 * 0.85) // 256)
@@ -1660,7 +1830,11 @@ def main():
               f"{res.history['provenance']['finetune_converged']}; pretrain "
               f"wall per step {1e3 * res.stage_s['pretrain'] / steps_pre:.3f}"
               f" ms (eval and gathers included)")
+        print(f"[14] fit() warnings: {dropped.rows or 'none'}")
+        margin("fine-tune rows kept", res.n_kept, ">= 100", res.n_kept - 100)
         check(res.n_kept >= 100, "fewer than 100 fine-tune rows kept")
+        margin("best pretrain val loss", f"{best_pre:.6f}", "< 1",
+               f"{1.0 - best_pre:.6f}")
         check(best_pre < 1.0, "pretraining does not beat the mean")
         loaded = port.load_surrogate(os.path.join(tmp, "models",
                                                   "ffn_surrogate.pkl"))
@@ -1668,8 +1842,14 @@ def main():
                                         res.surrogate)
         restored = checkpoint.load_surrogate_state(os.path.join(tmp,
                                                                 "state"))
+        with open(os.path.join(tmp, "models", "ffn_surrogate.pkl"),
+                  "rb") as f:
+            print(f"[14] saved surrogate sha256 "
+                  f"{hashlib.sha256(f.read()).hexdigest()[:16]}")
         for name in ("models/training_history.json", "data/scalers.pkl",
                      "data/finetune_calibrations.npz"):
+            margin(f"file {name} written",
+                   os.path.exists(os.path.join(tmp, name)), "True", "-")
             check(os.path.exists(os.path.join(tmp, name)), f"no {name}")
 
     held = port.generate_dataset(torch.Generator(dev).manual_seed(2027),
@@ -1682,6 +1862,7 @@ def main():
                 held.model_prices, held.spots)))
     print(f"[14] files load back: pickle, state checkpoint and the returned "
           f"surrogate predict identical bits {same}")
+    margin("reloaded surrogates' bits equal", same, "True", "-")
     check(same, "the saved surrogates predict differently")
     n_h = 512
     h_args = (held.spots, 0.03, held.strikes, held.maturities,
@@ -1709,8 +1890,18 @@ def main():
           f"{int((h_err < ffn_new).sum())}/{n_h}; FFN-only mean: new "
           f"{ffn_new.mean():.5f} %, shipped {ffn_shipped.mean():.5f} %; wall "
           f"{hyb_ms:.2f} ms")
+    gap = ffn_new - h_err
+    worst = int(np.argmin(gap))
+    print(f"[14] hybrid per-surface errors sha256 "
+          f"{hashlib.sha256(np.ascontiguousarray(h_err).tobytes()).hexdigest()[:16]}"
+          f"; FFN-only {hashlib.sha256(np.ascontiguousarray(ffn_new).tobytes()).hexdigest()[:16]}")
+    margin("every surface beats FFN-only (smallest FFN-only - hybrid "
+           "error, %)", f"surface {worst}: {ffn_new[worst]:.6f} - "
+           f"{h_err[worst]:.6f}", "> 0", f"{gap[worst]:.6f}")
     check(bool(np.all(h_err < ffn_new)),
           "a surface misses its FFN-only error (new surrogate)")
+    margin("hybrid mean error %", f"{h_err.mean():.6f}", "<= 0.03",
+           f"{0.03 - h_err.mean():.6f}")
     check(h_err.mean() <= 0.03, "hybrid (new surrogate) above 0.03 %")
 
     # One train step's cost: 50 steps at batch 256, events and host clock,
@@ -1755,6 +1946,8 @@ def main():
           f"ms; profiler windows {n_win})")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
         print(f"[14]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    margin("train steps' device busy ms", f"{busy:.3f}", "> 0",
+           f"{busy:.3f}")
     check(busy > 0, "the profile shows no device time for the train steps")
 
     # One dropout-free epoch of fit on the card and on the CPU, the same
@@ -1777,6 +1970,8 @@ def main():
           f"{h_card['val_loss'][0]:.7f} vs {h_cpu['val_loss'][0]:.7f}, rel "
           f"{rel:.3e} (tol 1e-3); train loss {h_card['train_loss'][0]:.7f} "
           f"vs {h_cpu['train_loss'][0]:.7f}")
+    margin("fit card vs CPU, relative val loss", f"{rel:.3e}", "<= 1e-3",
+           f"{1e-3 - rel:.3e}")
     check(rel <= 1e-3, "fit on the card disagrees with the CPU")
 
     # ------------------------------------------ 15 the benchmark's paths --

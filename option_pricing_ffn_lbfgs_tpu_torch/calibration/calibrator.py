@@ -42,16 +42,19 @@ import numpy as np
 import torch
 
 from ..models.double_heston import PARAM_NAMES, DHParams
-from ..ops.cos_kernel import price_surfaces
+from ..ops.cos_kernel import bind_price_surfaces, price_surfaces
 from ..ops.lbfgs_batched import lbfgs_minimize_batched
+from ..ops import levenberg_marquardt as lm
 from ..ops.levenberg_marquardt import LMResult, lm_minimize_batched
-from ..ops.loss_kernel import (make_batch_residual_jacobian,
-                               make_batch_value_and_grad)
+from ..ops.loss_kernel import (EXP_MASK, FELLER_IDX, TANH_MASK,
+                               bind_rows_jacobian, make_batch_value_and_grad,
+                               maturity_groups, polish_jacobian_plain,
+                               rows_jacobian)
 from ..utils.config import (CalibrationConfig, LBFGSConfig, LMConfig,
                             validate_calibration)
 from ..utils.results import CalibrationResult
 from .initial_guess import initial_guesses
-from .loss import loss_from_prices, residuals_from_prices
+from .loss import loss_from_prices, residual_rows
 from .transforms import inverse_transform, transform
 
 
@@ -168,38 +171,148 @@ def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
 calibrate_batch_fused = calibrate_batch
 
 
+class PolishObjective:
+    """The LM polish's objective over flat lanes: float64 residuals from
+    K1<double> (``__call__``) and the float32 Jacobian from K3 (``jac``,
+    cast up by the engine), with the host assembly of
+    ``calibration/loss.py::residual_rows`` and
+    ``ops/loss_kernel.py::polish_jacobian_plain``. It unpacks as
+    ``(residual_fn, jac_fn)``, whose engine trip is the unfused one around
+    that assembly. Passed itself as ``lm_minimize_batched``'s residual
+    function, it binds the fused trip (``bind_trip``): it holds the
+    problem at float64 and float32, the maturity groups K3 takes and, per
+    run, the trip's buffers."""
+
+    def __init__(self, lane_spots, rate, lane_strikes, lane_mats, lane_call,
+                 lane_mkt, config: CalibrationConfig):
+        f32 = torch.float32
+        self.spots, self.strikes, self.mats, self.mkt = (
+            t.contiguous() for t in (lane_spots, lane_strikes, lane_mats,
+                                     lane_mkt))
+        self.call = lane_call.contiguous()
+        self.spots32, self.strikes32, self.mats32, self.mkt32 = (
+            t.to(f32) for t in (self.spots, self.strikes, self.mats,
+                                self.mkt))
+        self.groups32 = maturity_groups(self.mats32)   # fixed across trips
+        self.rate = rate
+        self.config = config
+
+    @property
+    def n_rows(self) -> int:
+        """Residual rows a lane: n options and the two Feller rows."""
+        return self.mkt.shape[-1] + 2
+
+    def _pricer(self):
+        pc = self.config.pricer
+        return pc.n_terms, pc.trunc_L, pc.dividend_yield
+
+    def prices(self, params64):
+        """K1<double> (its plain version on the CPU) at ``params64``."""
+        n_terms, L, q = self._pricer()
+        return price_surfaces(params64, self.spots, self.rate, self.strikes,
+                              self.mats, self.call, n_terms=n_terms, L=L,
+                              q=q)
+
+    def rows(self, params32):
+        """K3's rows (its plain version on the CPU) at ``params32``."""
+        return rows_jacobian(params32, self.spots32, self.rate,
+                             self.strikes32, self.mats32, self.call,
+                             self.mkt32, *self._pricer(), self.groups32)[1]
+
+    def __call__(self, x):
+        params = transform(x)
+        return residual_rows(self.prices(params), DHParams.from_vector(params),
+                             self.mkt, self.config.feller_weight,
+                             self.config.bad_loss)
+
+    def jac(self, x):
+        params = transform(x.to(torch.float32))
+        return polish_jacobian_plain(self.rows(params), params,
+                                     self.config.feller_weight)
+
+    def __iter__(self):
+        return iter((self.__call__, self.jac))
+
+    def fused_trial(self, n_lanes: int, device) -> lm.LMFusedTrial:
+        """The fused entries' buffers and constants for ``n_lanes`` lanes
+        of this objective (``n_lanes`` must be its own)."""
+        f32, f64 = torch.float32, torch.float64
+        n = self.mkt.shape[-1]
+        new = lambda dt, *shape: torch.empty(shape, dtype=dt, device=device)
+        return lm.LMFusedTrial(
+            params64=new(f64, n_lanes, 13), params32=new(f32, n_lanes, 13),
+            price=new(f64, n_lanes, n), jac=new(f32, n_lanes, n, 13),
+            mkt=self.mkt, weight=float(self.config.feller_weight),
+            bad_loss=float(self.config.bad_loss), exp_mask=EXP_MASK,
+            tanh_mask=TANH_MASK, feller=FELLER_IDX)
+
+    def bind_trip(self, st, config: LMConfig, status, plain: bool):
+        """The fused LM trip on this objective, bound once for the engine's
+        state ``st`` and ``status`` (``levenberg_marquardt._bind_trip``):
+        on CUDA tensors (unless ``plain``) fused K6, K1<double> and K3 into
+        bound buffers, fused K7; else ``lm_open_fused_plain``, ``prices``,
+        ``rows`` and ``lm_update_fused_plain`` in place. The first trip is
+        the bootstrap (K1 at x0). None for no lanes, or where the fused
+        kernels do not take the rows (n + 2 > ``MAX_FUSED_ROWS``): the
+        engine then takes its unfused trip around ``__call__`` and
+        ``jac``. Raises on anything else the kernels do not take."""
+        n_lanes = st.x.shape[0]
+        if n_lanes == 0 or self.n_rows > lm.MAX_FUSED_ROWS:
+            return None
+        trial = self.fused_trial(n_lanes, st.x.device)
+        lm._check_fused(st, trial)
+        lm._check_status(status, st.x.device)
+        boot = [True]
+        if st.x.device.type == "cuda" and not plain:
+            kernels = lm.LMTripKernels(st, config, status,
+                                       torch.empty_like(st.x), trial)
+            n_terms, L, q = self._pricer()
+            k1 = bind_price_surfaces(trial.params64, self.spots, self.rate,
+                                     self.strikes, self.mats, self.call,
+                                     n_terms, L, q, trial.price)
+            k3 = bind_rows_jacobian(
+                trial.params32, self.spots32, self.rate, self.strikes32,
+                self.mats32, self.call, self.mkt32, n_terms, L, q,
+                self.groups32, torch.empty_like(self.mkt32), trial.jac)
+
+            def trip():
+                kernels.open(boot.pop() if boot else False)
+                k1()
+                k3()
+                kernels.update()
+            return trip
+
+        def trip():
+            x_try, params64, params32 = lm._open_fused_plain_inplace(
+                st, config, status, boot.pop() if boot else False)
+            lm._update_fused_plain_inplace(
+                st, x_try, params64, params32, self.prices(params64),
+                self.rows(params32), trial, config, status)
+        return trip
+
+
 def polish_residual_and_jacobian(lane_spots, rate, lane_strikes, lane_mats,
                                  lane_call, lane_mkt,
-                                 config: CalibrationConfig):
-    """``(residual_fn, jac_fn)`` of the LM polish over flat lanes: float64
-    residuals from K1<double>, the float32 Jacobian from K3 (cast up by
-    the engine). Lane tensors are float64 ``[L, ...]``."""
-    f32 = torch.float32
-    pc = config.pricer
-
-    def residual_fn(x):
-        params = transform(x)
-        prices = price_surfaces(params, lane_spots, rate, lane_strikes,
-                                lane_mats, lane_call, n_terms=pc.n_terms,
-                                L=pc.trunc_L, q=pc.dividend_yield)
-        return residuals_from_prices(prices, DHParams.from_vector(params),
-                                     lane_mkt, config)
-
-    jac32 = make_batch_residual_jacobian(
-        lane_spots.to(f32), lane_strikes.to(f32), lane_mats.to(f32),
-        lane_call, lane_mkt.to(f32), rate, config)
-    return residual_fn, lambda x: jac32(x.to(f32))
+                                 config: CalibrationConfig) -> PolishObjective:
+    """The LM polish's objective over flat lanes (``PolishObjective``):
+    float64 residuals from K1<double>, the float32 Jacobian from K3 (cast
+    up by the engine); it unpacks as ``(residual_fn, jac_fn)``. Lane
+    tensors are float64 ``[L, ...]``."""
+    return PolishObjective(lane_spots, rate, lane_strikes, lane_mats,
+                           lane_call, lane_mkt, config)
 
 
 def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
                         lane_mkt, x0, lam0, config: CalibrationConfig,
                         polish: LMConfig):
     """Batched LM over flat lanes: float64 residuals from K1<double>, the
-    float32 Jacobian from K3. Lane tensors are float64 ``[L, ...]``."""
-    residual_fn, jac_fn = polish_residual_and_jacobian(
+    float32 Jacobian from K3, on the objective's fused trip (fused K6,
+    K1<double>, K3, fused K7 and one read a trip on the card). Lane tensors
+    are float64 ``[L, ...]``."""
+    objective = polish_residual_and_jacobian(
         lane_spots, rate, lane_strikes, lane_mats, lane_call, lane_mkt,
         config)
-    res = lm_minimize_batched(residual_fn, x0, polish, jac_fn=jac_fn,
+    res = lm_minimize_batched(objective, x0, polish, jac_fn=objective.jac,
                               lam0=lam0)
     n_opt = lane_mkt.shape[-1]
     params_vec = transform(res.x)

@@ -85,13 +85,21 @@ def surface_residuals(params: DHParams, spot, rate, strikes, maturities,
 def residuals_from_prices(model, params: DHParams, market_prices,
                           config: CalibrationConfig) -> torch.Tensor:
     """Residual assembly shared by the plain path and the K1 polish path."""
+    return residual_rows(model, params, market_prices, config.feller_weight,
+                         config.bad_loss)
+
+
+def residual_rows(model, params: DHParams, market_prices, weight: float,
+                  bad_loss: float) -> torch.Tensor:
+    """``[L, n + 2]``: the relative pricing errors over sqrt(n), then the
+    Feller rows; every row ``sqrt(bad_loss / (n + 2))`` where a model price
+    is not finite and positive."""
     valid = torch.isfinite(model) & (model > 0.0)
     safe_model = torch.where(valid, model, market_prices)
     n = market_prices.shape[-1]
     rel = (safe_model - market_prices) / market_prices / math.sqrt(n)
-    r = torch.cat([rel, feller_residuals(params, config.feller_weight)],
-                  dim=-1)
-    bad = torch.full_like(r, math.sqrt(config.bad_loss / r.shape[-1]))
+    r = torch.cat([rel, feller_residuals(params, weight)], dim=-1)
+    bad = torch.full_like(r, math.sqrt(bad_loss / r.shape[-1]))
     return torch.where(torch.any(~valid, dim=-1, keepdim=True),
                        bad.detach(), r)
 

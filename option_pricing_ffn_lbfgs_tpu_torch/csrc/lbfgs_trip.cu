@@ -76,12 +76,14 @@
 // each Python constant becomes T(constant) as PyTorch casts it to the
 // tensor's dtype (1e-300 is 0 in float); division and square root are the
 // correctly rounded ones, exp and tanh the libm ones PyTorch's kernels
-// call. The plain versions sum in this file's order on the card: a dot
+// call (csrc/trip_transform.cuh, shared with the fused LM trip). The plain versions sum in this file's order on the card: a dot
 // product as the butterfly below (ops/lbfgs_batched.py::_dot), the loss's
 // row mean as torch.mean does. So on the card the fused trip gives the
 // bits of the unfused trip around the host assembly.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "trip_transform.cuh"
 
 namespace {
 
@@ -134,21 +136,6 @@ __device__ __forceinline__ float t_abs(float v) { return fabsf(v); }
 __device__ __forceinline__ double t_abs(double v) { return fabs(v); }
 __device__ __forceinline__ float t_sqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double t_sqrt(double v) { return sqrt(v); }
-__device__ __forceinline__ float t_exp(float v) { return expf(v); }
-__device__ __forceinline__ double t_exp(double v) { return exp(v); }
-__device__ __forceinline__ float t_tanh(float v) { return tanhf(v); }
-__device__ __forceinline__ double t_tanh(double v) { return tanh(v); }
-
-// The transform's coordinate masks (bit c: coordinate c), from
-// calibration/transforms.py through the caller.
-struct Transform {
-  unsigned exp_mask, tanh_mask;
-};
-
-__device__ __forceinline__ int coord_kind(const Transform& tf, int c) {
-  return ((tf.exp_mask >> c) & 1u) ? 0 : (((tf.tanh_mask >> c) & 1u) ? 1 : 2);
-}
-
 // torch.clamp(v, min=lo) / clamp(v, max=hi) / maximum / minimum: NaN in,
 // NaN out.
 template <typename T>
@@ -234,9 +221,7 @@ __device__ __forceinline__ void store_trial(T* x_try, T* params_try,
     for (int k = 0; k < K; ++k) {
       const int c = t + k * kGroup;
       if (c >= d) continue;
-      const int kind = coord_kind(tf, c);
-      params_try[row + c] =
-          kind == 0 ? t_exp(x[k]) : (kind == 1 ? t_tanh(x[k]) : x[k]);
+      params_try[row + c] = transform_coord(tf, c, x[k]);
     }
   }
 }
@@ -479,9 +464,7 @@ __device__ __forceinline__ void assemble(const Trial<T>& tr, int lane, int t,
     else if (c == s2) pen_g = on2 * T(2.0) * q[s2];
     else if (c == k2) pen_g = -on2 * T(2.0) * q[t2];
     else if (c == t2) pen_g = -on2 * T(2.0) * q[k2];
-    const T pc = q[c];
-    const int kind = coord_kind(tr.tf, c);
-    const T dtr = kind == 0 ? pc : (kind == 1 ? T(1.0) - pc * pc : T(1.0));
+    const T dtr = dtransform_coord(tr.tf, c, q[c]);
     T gx = (tr.g_price[static_cast<size_t>(lane) * kParams + c] + pen_g) * dtr;
     if (any_bad || !isfinite(gx)) gx = T(0);
     g[k] = gx;

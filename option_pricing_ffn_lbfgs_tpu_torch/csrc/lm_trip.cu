@@ -25,13 +25,47 @@
 //     which the host reads once a trip.
 // Both update the state in place (the plain versions build new tensors).
 //
+// Fused mode, for the LM polish's objective (double, d = 13, m = n + 2
+// residual rows with n + 2 <= kMaxFusedRows; the _fused entries): the
+// polish's host assembly (calibration/calibrator.py::PolishObjective, JAX's
+// calibration/loss.py::surface_residuals and ops/loss_pallas.py:259-285)
+// moves into the two kernels, so that a trip is K6, K1<double>
+// (csrc/cos_price.cu) and K3 (csrc/cos_vg.cu mode 1), both unchanged, and
+// K7 with no other launch:
+//   K6 also writes params64 = transform(x_try) at double, which K1 prices
+//     (transform(x) on the bootstrap trip, whose residuals the host path
+//     took at x0, and for done lanes), and params32 =
+//     transform(float(x_try)) at float, which K3 differentiates;
+//   K7 first assembles the evaluation, then runs the unfused K7 on it:
+//     r at double from K1's prices, in the host's order: a row's price is
+//     valid if finite and positive, the pricing rows are (safe - mkt) /
+//     mkt times row_scale (ATen divides by a Python scalar on the card as a
+//     multiplication by its reciprocal), then the two Feller rows
+//     sqrt(w max(0, sigma^2 - 2 kappa theta)) from params64, and the
+//     sentinel sqrt(bad_loss / m) on every row of a lane with an invalid
+//     price; J at float from K3's rows and the Feller rows taken from
+//     params32 (dv = (1 / (2 sqrt(w v))) w, which is ATen's w / y, then
+//     dv 2 p_sigma, (-dv) 2 p_theta, (-dv) 2 p_kappa), every entry times
+//     dtransform/dx (csrc/trip_transform.cuh), cast to double. A sentinel
+//     lane's J is left as computed, as the host path leaves it. The lane's
+//     residuals are staged in shared memory; J is assembled where K7
+//     copies it, on an accepted step.
+// The plain versions are ops/levenberg_marquardt.py::lm_open_fused_plain /
+// lm_update_fused_plain (the host assembly, ops/loss_kernel.py::
+// polish_assembly_plain, then lm_update_plain).
+//
 // What bounds them on the H100: bytes. Per lane K6 does about m d^2 + d^3/3
 // operations on the lane's m x d Jacobian (13 x 17 x 13 in the polish); at
 // 1536 lanes in double the Jacobian alone is 2.7 MB, under a microsecond
 // at 3.35 TB/s, and the operations over 34 TFLOP/s take less
 // (ops/opcount.py::lm_open_work, lm_update_work). A launch costs its
 // latency: what the design is for is to replace ~300 host-issued launches a
-// trip with two.
+// trip with two, and, fused, the assembly's ~100 as well; the wrappers bind
+// a run's trip once (ops/levenberg_marquardt.py::LMTripKernels), so a
+// launch is one prepared ctypes call. Fused K6 adds 13 values a lane at
+// each precision to its writes, fused K7 reads n prices and market prices
+// and the lane's parameters in place of r_try, and K3's float rows in
+// place of j_try where it accepts: still bytes.
 //
 // Design: one warp per lane, thread t holding coordinate t (d <= 32). J^T J
 // is accumulated in registers, row t by thread t, each row of J broadcast
@@ -49,10 +83,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "trip_transform.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxDim = 32;               // a thread per coordinate
+constexpr int kParams = 13;               // the fused mode's d
+constexpr int kMaxFusedRows = 128;        // the fused mode's m = n + 2
 constexpr int kLanesPerBlock = 4;
 constexpr int kThreads = kWarp * kLanesPerBlock;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -103,10 +141,32 @@ __device__ __forceinline__ T warp_max(T v) {
   return v;
 }
 
-template <typename T>
+// What fused K6 writes besides x_try: the trial parameters at both
+// precisions (d = 13, double state).
+struct OpenParams {
+  double* params64;                       // [L, 13] transform(x_try)
+  float* params32;                        // [L, 13] transform(float(x_try))
+  Transform tf;
+  int boot;                               // the bootstrap trip: params64 at x
+};
+
+// Thread t's coordinate of x_try, and in fused mode of the trial
+// parameters (``x`` the lane's iterate, ``xt`` its x_try).
+template <typename T, bool Fused>
+__device__ __forceinline__ void store_trial(T* x_try, const OpenParams& op,
+                                            size_t row, int t, T x, T xt) {
+  x_try[row + t] = xt;
+  if constexpr (Fused) {
+    op.params64[row + t] = transform_coord(op.tf, t, op.boot ? x : xt);
+    op.params32[row + t] =
+        transform_coord(op.tf, t, static_cast<float>(xt));
+  }
+}
+
+template <typename T, bool Fused>
 __global__ void __launch_bounds__(kThreads)
-lm_open_kernel(State<T> st, T* __restrict__ x_try, int* status, int L, int m,
-               int d) {
+lm_open_kernel(State<T> st, T* __restrict__ x_try, OpenParams op,
+               int* status, int L, int m, int d) {
   extern __shared__ unsigned char smem_raw[];
   const int t = threadIdx.x % kWarp;
   const int w = threadIdx.x / kWarp;
@@ -117,7 +177,7 @@ lm_open_kernel(State<T> st, T* __restrict__ x_try, int* status, int L, int m,
   const size_t row = static_cast<size_t>(lane) * d;
   const T x = mine ? st.x[row + t] : T(0);
   if (st.done[lane]) {                    // done lanes hold: x_try = x
-    if (mine) x_try[row + t] = x;
+    if (mine) store_trial<T, Fused>(x_try, op, row, t, x, x);
     return;
   }
   // J^T J (row t in thread t's registers) and g = J^T r, over the rows in
@@ -185,7 +245,7 @@ lm_open_kernel(State<T> st, T* __restrict__ x_try, int* status, int L, int m,
   }
   const T dx_max = warp_max(t_abs(dx));
   const T g_max = warp_max(mine ? t_abs(g) : T(0));
-  if (mine) x_try[row + t] = x + dx;
+  if (mine) store_trial<T, Fused>(x_try, op, row, t, x, x + dx);
   if (t == 0) {
     st.dx_max[lane] = dx_max;
     st.g_max[lane] = g_max;
@@ -199,15 +259,23 @@ struct Config {
   int maxiter;
 };
 
-// One lane that is not done; returns whether it is still not done.
+// The evaluation's Jacobian entry i (row-major [m, d]) of a lane, read
+// from j_try (unfused).
 template <typename T>
+struct JacRows {
+  const T* j;                             // the lane's [m, d]
+  __device__ __forceinline__ T operator()(size_t i) const { return j[i]; }
+};
+
+// One lane that is not done, on the evaluation at x_try (the lane's row)
+// with residuals r_try (the lane's m) and Jacobian entries jac(i); returns
+// whether it is still not done.
+template <typename T, typename Jac>
 __device__ __forceinline__ bool update_lane(
-    const State<T>& st, const T* __restrict__ x_try_all,
-    const T* __restrict__ r_try_all, const T* __restrict__ j_try_all,
-    const Config& cfg, int lane, int t, int m, int d) {
+    const State<T>& st, const T* __restrict__ x_try, const T* r_try,
+    const Jac& jac, const Config& cfg, int lane, int t, int m, int d) {
   const bool mine = t < d;
   const size_t row = static_cast<size_t>(lane) * d;
-  const T* r_try = r_try_all + static_cast<size_t>(lane) * m;
   T cost_try = T(0);
   for (int k = 0; k < m; ++k) {           // every thread, rows in order
     T v = r_try[k];
@@ -219,13 +287,12 @@ __device__ __forceinline__ bool update_lane(
   const T x_max = warp_max(t_abs(x));
   const bool accept = cost_try < cost;
   if (accept) {
-    if (mine) st.x[row + t] = x_try_all[row + t];
+    if (mine) st.x[row + t] = x_try[t];
     T* r = st.r + static_cast<size_t>(lane) * m;
     for (int k = t; k < m; k += kWarp) r[k] = r_try[k];
     const size_t n = static_cast<size_t>(m) * d;
     T* J = st.J + static_cast<size_t>(lane) * n;
-    const T* j_try = j_try_all + static_cast<size_t>(lane) * n;
-    for (size_t i = t; i < n; i += kWarp) J[i] = j_try[i];
+    for (size_t i = t; i < n; i += kWarp) J[i] = jac(i);
   }
   const T cost_new = accept ? cost_try : cost;
   const T lam_new = accept
@@ -260,47 +327,185 @@ __device__ __forceinline__ bool update_lane(
   return !done;
 }
 
-template <typename T>
+// What fused K7 assembles the evaluation from (double state, d = 13).
+struct Assembly {
+  const double* params64;                 // [L, 13] K1's parameters
+  const float* params32;                  // [L, 13] K3's parameters
+  const double* price;                    // [L, n] K1's prices
+  const float* jac;                       // [L, n, 13] K3's rows
+  const double* mkt;                      // [L, n] market prices
+  double weight;                          // the Feller weight
+  double sentinel;                        // sqrt(bad_loss / m)
+  double row_scale;                       // 1 / sqrt(n), rounded in double
+  int n;                                  // options a lane; m = n + 2
+  int feller;                             // (sigma, kappa, theta) x 2, 4 bits
+  Transform tf;
+};
+
+__device__ __forceinline__ int feller_index(int feller, int f, int which) {
+  return (feller >> (4 * (3 * f + which))) & 15;
+}
+
+// The lane's residuals into r (shared memory, m = n + 2 values): the
+// pricing rows, the Feller rows, or the sentinel on all of them where a
+// price is not finite and positive (calibration/loss.py::residual_rows).
+__device__ __forceinline__ void assemble_residuals(const Assembly& a,
+                                                   int lane, int t,
+                                                   double* r) {
+  const int n = a.n;
+  const double* price = a.price + static_cast<size_t>(lane) * n;
+  const double* mkt = a.mkt + static_cast<size_t>(lane) * n;
+  bool invalid = false;
+  for (int k = t; k < n; k += kWarp) {
+    const double p = price[k];
+    invalid = invalid || !(isfinite(p) && p > 0.0);
+  }
+  const bool bad = __any_sync(kFull, invalid);
+  const double* q = a.params64 + static_cast<size_t>(lane) * kParams;
+  for (int k = t; k < n + 2; k += kWarp) {
+    double v;
+    if (bad) {
+      v = a.sentinel;
+    } else if (k < n) {                   // every price here is valid
+      v = (price[k] - mkt[k]) / mkt[k] * a.row_scale;
+    } else {
+      const int f = k - n;
+      const int s = feller_index(a.feller, f, 0),
+                kk = feller_index(a.feller, f, 1),
+                th = feller_index(a.feller, f, 2);
+      const double viol = q[s] * q[s] - 2.0 * q[kk] * q[th];
+      const bool active = viol > 0.0;
+      v = active ? sqrt(a.weight * viol) : 0.0;
+    }
+    r[k] = v;
+  }
+  __syncwarp();                           // r written before it is read
+}
+
+// The lane's Jacobian entry i (row-major [n + 2, 13]) at float, times
+// dtransform/dx, cast to double: K3's rows, then the Feller rows from
+// params32 (ops/loss_kernel.py::polish_jacobian_plain).
+struct AssembledJac {
+  Assembly a;
+  int lane;
+  __device__ __forceinline__ double operator()(size_t i) const {
+    const int n = a.n;
+    const int k = static_cast<int>(i / kParams);
+    const int c = static_cast<int>(i % kParams);
+    const float* q = a.params32 + static_cast<size_t>(lane) * kParams;
+    float v;
+    if (k < n) {
+      v = a.jac[static_cast<size_t>(lane) * n * kParams + i];
+    } else {
+      const int f = k - n;
+      const int s = feller_index(a.feller, f, 0),
+                kk = feller_index(a.feller, f, 1),
+                th = feller_index(a.feller, f, 2);
+      const float w = static_cast<float>(a.weight);
+      const float viol = q[s] * q[s] - 2.0f * q[kk] * q[th];
+      const bool active = viol > 0.0f;
+      const float safe = active ? viol : 1.0f;
+      // weight / (2 sqrt(weight safe)): ATen's reciprocal, then times w
+      const float dv =
+          active ? (1.0f / (sqrtf(safe * w) * 2.0f)) * w : 0.0f;
+      v = c == s ? (dv * 2.0f) * q[s]
+        : c == kk ? (-dv * 2.0f) * q[th]
+        : c == th ? (-dv * 2.0f) * q[kk] : 0.0f;
+    }
+    return static_cast<double>(v * dtransform_coord(a.tf, c, q[c]));
+  }
+};
+
+template <typename T, bool Fused>
 __global__ void __launch_bounds__(kThreads)
 lm_update_kernel(State<T> st, const T* __restrict__ x_try,
                  const T* __restrict__ r_try, const T* __restrict__ j_try,
-                 int* status, Config cfg, int L, int m, int d) {
+                 Assembly asm_, int* status, Config cfg, int L, int m,
+                 int d) {
+  extern __shared__ unsigned char smem_raw[];   // fused: a lane's residuals
   const int t = threadIdx.x % kWarp;
-  const int lane = blockIdx.x * kLanesPerBlock + threadIdx.x / kWarp;
+  const int w = threadIdx.x / kWarp;
+  const int lane = blockIdx.x * kLanesPerBlock + w;
   bool live = false;
-  if (lane < L && !st.done[lane])
-    live = update_lane<T>(st, x_try, r_try, j_try, cfg, lane, t, m, d);
+  if (lane < L && !st.done[lane]) {
+    const T* xt = x_try + static_cast<size_t>(lane) * d;
+    if constexpr (Fused) {
+      double* r = reinterpret_cast<double*>(smem_raw) +
+                  static_cast<size_t>(w) * m;
+      assemble_residuals(asm_, lane, t, r);
+      live = update_lane<T>(st, xt, r, AssembledJac{asm_, lane}, cfg, lane,
+                            t, m, d);
+    } else {
+      const size_t lm = static_cast<size_t>(lane) * m;
+      live = update_lane<T>(st, xt, r_try + lm, JacRows<T>{j_try + lm * d},
+                            cfg, lane, t, m, d);
+    }
+  }
   const int n = __syncthreads_count(live && t == 0);
   if (threadIdx.x == 0 && n > 0) atomicAdd(status, n);
+}
+
+inline bool bad_shape(int L, int m, int d) {
+  return L <= 0 || m <= 0 || d <= 0 || d > kMaxDim;
+}
+
+// The fused entries' shapes and constants: d = 13, m = n + 2 rows with
+// n >= 1 and m <= kMaxFusedRows, disjoint masks below bit 13, Feller
+// indices below 13.
+inline bool bad_fused(int L, int m, int d, int n, unsigned exp_mask,
+                      unsigned tanh_mask, int feller) {
+  if (bad_shape(L, m, d) || d != kParams || n < 1 || m != n + 2 ||
+      m > kMaxFusedRows || ((exp_mask | tanh_mask) >> kParams) != 0u ||
+      (exp_mask & tanh_mask) != 0u)
+    return true;
+  for (int i = 0; i < 6; ++i)
+    if (((feller >> (4 * i)) & 15) >= kParams) return true;
+  return false;
+}
+
+template <typename T, bool Fused>
+int launch_open(void* const* ptrs, void* x_try, const OpenParams& op,
+                void* status, int L, int m, int d, void* stream) {
+  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
+  const size_t smem = static_cast<size_t>(kLanesPerBlock) * d * d * sizeof(T);
+  lm_open_kernel<T, Fused><<<blocks, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      unpack<T>(ptrs), static_cast<T*>(x_try), op, static_cast<int*>(status),
+      L, m, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool Fused>
+int launch_update(void* const* ptrs, const void* x_try, const void* r_try,
+                  const void* j_try, const Assembly& a, void* status,
+                  const Config& cfg, int L, int m, int d, void* stream) {
+  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
+  // fused: a lane's residuals in shared memory
+  const size_t smem =
+      Fused ? static_cast<size_t>(kLanesPerBlock) * m * sizeof(double) : 0;
+  lm_update_kernel<T, Fused><<<blocks, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      unpack<T>(ptrs), static_cast<const T*>(x_try),
+      static_cast<const T*>(r_try), static_cast<const T*>(j_try), a,
+      static_cast<int*>(status), cfg, L, m, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int open_entry(void* const* ptrs, void* x_try, void* status, int L, int m,
                int d, void* stream) {
-  if (L <= 0 || m <= 0 || d <= 0 || d > kMaxDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
-  const size_t smem = static_cast<size_t>(kLanesPerBlock) * d * d * sizeof(T);
-  lm_open_kernel<T><<<blocks, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      unpack<T>(ptrs), static_cast<T*>(x_try), static_cast<int*>(status), L,
-      m, d);
-  return static_cast<int>(cudaGetLastError());
+  if (bad_shape(L, m, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_open<T, false>(ptrs, x_try, OpenParams{}, status, L, m, d,
+                               stream);
 }
 
 template <typename T>
 int update_entry(void* const* ptrs, const void* x_try, const void* r_try,
                  const void* j_try, void* status, const Config& cfg, int L,
                  int m, int d, void* stream) {
-  if (L <= 0 || m <= 0 || d <= 0 || d > kMaxDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
-  lm_update_kernel<T><<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      unpack<T>(ptrs), static_cast<const T*>(x_try),
-      static_cast<const T*>(r_try), static_cast<const T*>(j_try),
-      static_cast<int*>(status), cfg, L, m, d);
-  return static_cast<int>(cudaGetLastError());
+  if (bad_shape(L, m, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_update<T, false>(ptrs, x_try, r_try, j_try, Assembly{},
+                                 status, cfg, L, m, d, stream);
 }
 
 }  // namespace
@@ -308,7 +513,13 @@ int update_entry(void* const* ptrs, const void* x_try, const void* r_try,
 // ptrs: the 11 state tensors' device pointers in _State's field order
 // (row-major [L], [L, d], [L, m] or [L, m, d]; int32 counters, 1-byte
 // bools); x_try [L, d]; r_try [L, m]; j_try [L, m, d]; status int32 [1]
-// (the live count). Return the launch's cudaError_t.
+// (the live count). Fused entries (double, d = 13, m = n + 2 <= 128):
+// params64 [L, 13] double, params32 [L, 13] float; price, mkt [L, n]
+// double; jac [L, n, 13] float (K3's rows); boot: 1 on the bootstrap trip;
+// weight, the Feller weight; sentinel, sqrt(bad_loss / m); row_scale,
+// 1 / sqrt(n) in double; exp_mask and tanh_mask, bit c for coordinate c;
+// feller, the two factors' (sigma, kappa, theta) indices, 4 bits each from
+// the lowest. Return the launch's cudaError_t.
 extern "C" int lm_open_f32(void* const* ptrs, void* x_try, void* status,
                            int L, int m, int d, void* stream) {
   return open_entry<float>(ptrs, x_try, status, L, m, d, stream);
@@ -317,6 +528,19 @@ extern "C" int lm_open_f32(void* const* ptrs, void* x_try, void* status,
 extern "C" int lm_open_f64(void* const* ptrs, void* x_try, void* status,
                            int L, int m, int d, void* stream) {
   return open_entry<double>(ptrs, x_try, status, L, m, d, stream);
+}
+
+extern "C" int lm_open_fused_f64(void* const* ptrs, void* x_try,
+                                 void* params64, void* params32,
+                                 unsigned exp_mask, unsigned tanh_mask,
+                                 int boot, void* status, int L, int m,
+                                 int d, void* stream) {
+  if (bad_fused(L, m, d, m - 2, exp_mask, tanh_mask, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const OpenParams op{static_cast<double*>(params64),
+                      static_cast<float*>(params32),
+                      Transform{exp_mask, tanh_mask}, boot != 0};
+  return launch_open<double, true>(ptrs, x_try, op, status, L, m, d, stream);
 }
 
 #define LM_UPDATE_ENTRY(NAME, T)                                             \
@@ -336,3 +560,28 @@ extern "C" int lm_open_f64(void* const* ptrs, void* x_try, void* status,
 
 LM_UPDATE_ENTRY(lm_update_f32, float)
 LM_UPDATE_ENTRY(lm_update_f64, double)
+
+extern "C" int lm_update_fused_f64(
+    void* const* ptrs, const void* x_try, const void* params64,
+    const void* params32, const void* price, const void* jac,
+    const void* mkt, void* status, double ftol, double gtol, double xtol,
+    double lambda_down, double lambda_up, double lambda_min,
+    double lambda_max, double xstall_lam, double cost_target, double weight,
+    double sentinel, double row_scale, int maxiter, int n_opt,
+    unsigned exp_mask, unsigned tanh_mask, int feller, int L, int m, int d,
+    void* stream) {
+  if (bad_fused(L, m, d, n_opt, exp_mask, tanh_mask, feller))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Config cfg{ftol,       gtol,       xtol,       lambda_down,
+                   lambda_up,  lambda_min, lambda_max, xstall_lam,
+                   cost_target, maxiter};
+  const Assembly a{static_cast<const double*>(params64),
+                   static_cast<const float*>(params32),
+                   static_cast<const double*>(price),
+                   static_cast<const float*>(jac),
+                   static_cast<const double*>(mkt),
+                   weight, sentinel, row_scale, n_opt, feller,
+                   Transform{exp_mask, tanh_mask}};
+  return launch_update<double, true>(ptrs, x_try, nullptr, nullptr, a,
+                                     status, cfg, L, m, d, stream);
+}

@@ -47,14 +47,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 3
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def price_surfaces(params, spots, rate, strikes, maturities, is_call,
-                   n_terms: int = 128, L: float = 10.0, q: float = 0.0):
-    """Price ``[B, n_opt]`` options; ``params [B, 13]``, ``spots [B]``,
-    scalar ``rate``, ``is_call`` bool. Computes in ``params.dtype``
-    (float32 or float64) and returns ``[B, n_opt]``."""
-    if params.device.type == "cpu":
-        return price_surfaces_plain(params, spots, rate, strikes, maturities,
-                                    is_call, n_terms, L, q)
+def _inputs(params, spots, strikes, maturities, is_call):
+    """(C entry, contiguous inputs) of a K1 launch on CUDA tensors; raises
+    on what the kernel does not take."""
     dt, dev = params.dtype, params.device
     if dev.type != "cuda" or dt not in _ENTRY:
         raise ValueError(f"K1 takes float32/float64 CUDA tensors, got {dt} "
@@ -70,15 +65,55 @@ def price_surfaces(params, spots, rate, strikes, maturities, is_call,
     if is_call.dtype != torch.bool or maturities.shape != strikes.shape \
             or is_call.shape != strikes.shape:
         raise ValueError("is_call must be a bool tensor shaped like strikes")
-    ins = [t.contiguous() for t in ins] + [is_call.contiguous()]
-    out = torch.empty((b, n_opt), dtype=dt, device=dev)
-    if b * n_opt == 0:
-        return out
-    entry = _ENTRY[dt]
-    err = kernel_build.entry("cos_price", entry, _ARGTYPES)(
+    return _ENTRY[dt], [t.contiguous() for t in ins] + [is_call.contiguous()]
+
+
+def _args(entry, ins, out, rate, q, L, n_terms):
+    """The C entry and its argument tuple for a launch into ``out``."""
+    b, n_opt = out.shape
+    return kernel_build.entry("cos_price", entry, _ARGTYPES), (
         *(t.data_ptr() for t in ins), out.data_ptr(),
         float(rate), float(q), float(L), b * n_opt, n_opt, n_terms,
-        torch.cuda.current_stream(dev).cuda_stream)
-    kernel_build.check(err, entry)
+        torch.cuda.current_stream(out.device).cuda_stream)
+
+
+def price_surfaces(params, spots, rate, strikes, maturities, is_call,
+                   n_terms: int = 128, L: float = 10.0, q: float = 0.0):
+    """Price ``[B, n_opt]`` options; ``params [B, 13]``, ``spots [B]``,
+    scalar ``rate``, ``is_call`` bool. Computes in ``params.dtype``
+    (float32 or float64) and returns ``[B, n_opt]``."""
+    if params.device.type == "cpu":
+        return price_surfaces_plain(params, spots, rate, strikes, maturities,
+                                    is_call, n_terms, L, q)
+    entry, ins = _inputs(params, spots, strikes, maturities, is_call)
+    out = torch.empty(strikes.shape, dtype=params.dtype, device=params.device)
+    if out.numel() == 0:
+        return out
+    fn, args = _args(entry, ins, out, rate, q, L, n_terms)
+    kernel_build.check(fn(*args), entry)
     LAUNCHES[entry] += 1
     return out
+
+
+def bind_price_surfaces(params, spots, rate, strikes, maturities, is_call,
+                        n_terms: int, L: float, q: float, out):
+    """K1 bound once, for the fused LM trip: a launcher with no arguments
+    that prices ``params [B, 13]`` (rewritten in place between launches)
+    into the preallocated ``out [B, n_opt]``. Every check of
+    ``price_surfaces`` runs here, once; CUDA tensors only, at least one
+    option."""
+    entry, ins = _inputs(params, spots, strikes, maturities, is_call)
+    if (out.shape != strikes.shape or out.dtype != params.dtype
+            or out.device != params.device or not out.is_contiguous()):
+        raise ValueError(f"out: expected contiguous {params.dtype} "
+                         f"{tuple(strikes.shape)} on {params.device}")
+    if out.numel() == 0:
+        raise ValueError("K1 needs at least one option to price")
+    if not params.is_contiguous():
+        raise ValueError("params must be contiguous: K1 reads it in place")
+    fn, args = _args(entry, ins, out, rate, q, L, n_terms)
+
+    def launch(_keep=(ins, out)):
+        kernel_build.check(fn(*args), entry)
+        LAUNCHES[entry] += 1
+    return launch

@@ -38,24 +38,50 @@ factor's inner sums in sequence, forward then back substitution), and copy
 the result into the state. There is no other path: a CUDA tensor launches
 the kernels or raises.
 
+The engine binds its trip once a run (``_bind_trip``; ``LMTripKernels``
+prepares the launches). The LM polish's objective
+(``calibration/calibrator.py::PolishObjective``) binds a fused trip::
+
+    open(boot)      # fused K6: x_try, params64, params32
+    k1()            # K1<double> prices params64 into a bound buffer
+    k3()            # K3 differentiates params32 into a bound buffer
+    update()        # fused K7: assembles (r, J), then K7
+
+and one read; on CPU tensors the plain pair ``lm_open_fused_plain`` /
+``lm_update_fused_plain`` around the plain K1 and K3. The fused entries
+take float64 states with d = 13 and m = n + 2 <= ``MAX_FUSED_ROWS`` rows;
+the objective binds no fused trip on other shapes, and the engine runs
+the unfused trip around its host assembly.
+
 The first trip only evaluates ``r(x0)`` (zero Jacobian, so a zero step,
-accepted against an infinite cost), as in the JAX engine.
+accepted against an infinite cost), as in the JAX engine: the unfused
+trip reuses the residuals it took at x0, the fused K6 gives K1 the
+parameters of x (not of x_try = x + 0, whose -0.0 coordinates would be
++0.0).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple
 
 import torch
 
+from ..calibration.transforms import transform
 from ..utils.config import LMConfig
 from . import kernel_build
+from .loss_kernel import polish_assembly_plain
 
 # Launches of each kernel, counted where it is launched.
 LAUNCHES = {"lm_open": 0, "lm_update": 0, "lm_open_f64": 0,
-            "lm_update_f64": 0}
+            "lm_update_f64": 0, "lm_open_fused_f64": 0,
+            "lm_update_fused_f64": 0}
 # The kernels give a lane one warp, a thread per coordinate.
 MAX_DIM = 32
+# The fused mode: the model's 13 parameters and at most 128 residual rows
+# a lane (n options + the two Feller rows; csrc/lm_trip.cu kMaxFusedRows).
+N_PARAMS = 13
+MAX_FUSED_ROWS = 128
 
 
 class LMResult(NamedTuple):
@@ -278,6 +304,27 @@ def lm_update_plain(st: _State, x_try, r_try, j_try,
     return _hold(st.done, st, new)
 
 
+def lm_open_fused_plain(st: _State, config: LMConfig, boot: bool):
+    """Plain fused K6: ``(state, x_try, params64, params32)`` with
+    ``params64 = transform(x_try)`` (``transform(x)`` on the bootstrap
+    trip, ``boot``, whose residuals the host path takes at x0) and
+    ``params32 = transform(float32(x_try))``. Builds new tensors."""
+    new, x_try = lm_open_plain(st, config)
+    params64 = transform(st.x if boot else x_try)
+    return new, x_try, params64, transform(x_try.to(torch.float32))
+
+
+def lm_update_fused_plain(st: _State, x_try, params64, params32, price,
+                          j_price, mkt, weight: float, bad_loss: float,
+                          config: LMConfig) -> _State:
+    """Plain fused K7: the polish's host assembly
+    (``loss_kernel.polish_assembly_plain``) from K1's prices and K3's rows,
+    then ``lm_update_plain`` on its (r, J)."""
+    r_try, j_try = polish_assembly_plain(price, j_price, mkt, params64,
+                                         params32, weight, bad_loss)
+    return lm_update_plain(st, x_try, r_try, j_try, config)
+
+
 # ------------------------------------------------------------- wrappers --
 
 def _check_state(st: _State):
@@ -345,28 +392,205 @@ def _update_plain_inplace(st, x_try, r_try, j_try, config, status):
     status[0] = torch.count_nonzero(~st.done).to(torch.int32)
 
 
+def _open_fused_plain_inplace(st, config, status, boot):
+    new, x_try, params64, params32 = lm_open_fused_plain(st, config, boot)
+    _assign(st, new)
+    status[0] = 0
+    return x_try, params64, params32
+
+
+def _update_fused_plain_inplace(st, x_try, params64, params32, price,
+                                j_price, trial, config, status):
+    _assign(st, lm_update_fused_plain(
+        st, x_try, params64, params32, price, j_price, trial.mkt,
+        trial.weight, trial.bad_loss, config))
+    status[0] = torch.count_nonzero(~st.done).to(torch.int32)
+
+
+class LMFusedTrial(NamedTuple):
+    """What the fused entries take besides the state, from the objective
+    that binds them (``calibration/calibrator.py::PolishObjective``): the
+    buffers around K1 and K3, ``params64 [L, 13]`` (double; fused K6 writes
+    it, K1 reads it), ``params32 [L, 13]`` (float; fused K6 writes it, K3
+    reads it), K1's ``price [L, n]`` and K3's rows ``jac [L, n, 13]``
+    (float), which fused K7 reads with the lanes' market prices ``mkt
+    [L, n]``; the Feller weight and ``bad_loss``; the transform's
+    ``exp_mask`` and ``tanh_mask`` (bit c: coordinate c); ``feller``, each
+    variance factor's (sigma, kappa, theta) indices."""
+    params64: torch.Tensor
+    params32: torch.Tensor
+    price: torch.Tensor
+    jac: torch.Tensor
+    mkt: torch.Tensor
+    weight: float
+    bad_loss: float
+    exp_mask: int
+    tanh_mask: int
+    feller: tuple
+
+
+def _check_buffer(name, t, shape, dt, dev):
+    if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected contiguous {dt} {shape} on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _check_fused(st: _State, trial: LMFusedTrial):
+    """Raises unless ``trial`` fits the state for the fused kernels: a
+    float64 state with d = 13 and m = n + 2 <= ``MAX_FUSED_ROWS`` rows."""
+    L, m, d = _check_state(st)
+    dev = st.x.device
+    if st.x.dtype != torch.float64 or d != N_PARAMS:
+        raise ValueError(f"the fused LM trip takes a float64 state with "
+                         f"d = {N_PARAMS}, got {st.x.dtype}, d={d}")
+    if trial.mkt.dim() != 2 or trial.mkt.shape[1] + 2 != m \
+            or not 3 <= m <= MAX_FUSED_ROWS:
+        raise ValueError(f"the fused LM trip takes market prices [L, n] "
+                         f"with m = n + 2 <= {MAX_FUSED_ROWS} residual "
+                         f"rows, n >= 1; got m={m}, market prices "
+                         f"{tuple(trial.mkt.shape)}")
+    if (trial.exp_mask | trial.tanh_mask) >> N_PARAMS or (
+            trial.exp_mask & trial.tanh_mask):
+        raise ValueError("exp_mask and tanh_mask: disjoint coordinate "
+                         f"masks below bit {N_PARAMS}")
+    idx = [c for factor in trial.feller for c in factor]
+    if len(idx) != 6 or not all(0 <= c < N_PARAMS for c in idx):
+        raise ValueError("feller: two (sigma, kappa, theta) index triples")
+    n = m - 2
+    f32, f64 = torch.float32, torch.float64
+    for name, shape, dt in (("params64", (L, N_PARAMS), f64),
+                            ("params32", (L, N_PARAMS), f32),
+                            ("price", (L, n), f64),
+                            ("jac", (L, n, N_PARAMS), f32),
+                            ("mkt", (L, n), f64)):
+        _check_buffer(name, getattr(trial, name), shape, dt, dev)
+
+
 # state, x_try, status, L, m, d, stream
 _OPEN_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p]
+# state, x_try, params64, params32; exp_mask, tanh_mask; boot; status; L,
+# m, d; stream
+_OPEN_FUSED_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 2
+                        + [ctypes.c_int] + [ctypes.c_void_p]
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # state, x_try, r_try, j_try, status; ftol, gtol, xtol, lambda_down,
 # lambda_up, lambda_min, lambda_max, 10 lambda_init, cost_target; maxiter,
 # L, m, d; stream
 _UPDATE_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4
                     + [ctypes.c_double] * 9 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p])
+# state, x_try, params64, params32, price, jac, mkt, status; the 9 config
+# doubles, weight, sentinel, row_scale; maxiter, n_opt; exp_mask,
+# tanh_mask; feller, L, m, d; stream
+_UPDATE_FUSED_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)]
+                          + [ctypes.c_void_p] * 7 + [ctypes.c_double] * 12
+                          + [ctypes.c_int] * 2 + [ctypes.c_uint] * 2
+                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _suffix(dt):
     return "f32" if dt == torch.float32 else "f64"
 
 
-def _count_key(kind, dt):
-    return f"lm_{kind}" + ("" if dt == torch.float32 else "_f64")
+def _count_key(kind, dt, fused=False):
+    return (f"lm_{kind}" + ("_fused" if fused else "")
+            + ("" if dt == torch.float32 else "_f64"))
 
 
 def _pointers(st: _State):
     return (ctypes.c_void_p * len(st))(*(t.data_ptr() for t in st))
+
+
+class LMTripKernels:
+    """K6 and K7 bound once to the state ``st`` (which they update in
+    place), its status word and the trial buffers, CUDA tensors only:
+    every check, the pointer array, the C entries, the stream and the
+    scalar arguments are prepared here, so each launch is one ctypes call.
+
+    Unfused (``fused=None``): ``open()`` writes ``x_try``; ``update(r_try,
+    j_try)`` takes the evaluation at ``x_try``. Fused (``fused`` an
+    ``LMFusedTrial``: float64, d = 13, m = n + 2 <= ``MAX_FUSED_ROWS``):
+    ``open(boot)`` also writes ``fused.params64`` (at x on the bootstrap
+    trip) and ``fused.params32``; ``update()`` assembles the evaluation
+    from ``fused``'s K1 prices, K3 rows and market prices."""
+
+    def __init__(self, st: _State, config: LMConfig, status, x_try,
+                 fused: LMFusedTrial = None):
+        L, m, d = _check_state(st)
+        dt, dev = st.x.dtype, st.x.device
+        _check_status(status, dev)
+        if dev.type != "cuda":
+            raise ValueError(f"K6/K7 launch on CUDA tensors, got {dev}")
+        _check_buffer("x_try", x_try, (L, d), dt, dev)
+        if fused is not None:
+            _check_fused(st, fused)
+        self._st, self._x_try = st, x_try
+        self._keep = (status, fused)
+        self._fused = fused is not None
+        ptrs = _pointers(st)                 # the fields are updated in place
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        self._open_key = _count_key("open", dt, self._fused)
+        self._update_key = _count_key("update", dt, self._fused)
+        c = config
+        doubles = (float(c.ftol), float(c.gtol), float(c.xtol),
+                   float(c.lambda_down), float(c.lambda_up),
+                   float(c.lambda_min), float(c.lambda_max),
+                   float(10.0 * c.lambda_init), float(c.cost_target))
+        if fused is None:
+            self._open_fn = kernel_build.entry(
+                "lm_trip", f"lm_open_{_suffix(dt)}", _OPEN_ARGTYPES)
+            self._open_args = {False: (ptrs, x_try.data_ptr(),
+                                       status.data_ptr(), L, m, d, stream)}
+            self._update_fn = kernel_build.entry(
+                "lm_trip", f"lm_update_{_suffix(dt)}", _UPDATE_ARGTYPES)
+            self._update_args = ((ptrs, x_try.data_ptr()),
+                                 (status.data_ptr(), *doubles,
+                                  int(c.maxiter), L, m, d, stream))
+        else:
+            self._open_fn = kernel_build.entry(
+                "lm_trip", "lm_open_fused_f64", _OPEN_FUSED_ARGTYPES)
+            self._open_args = {
+                boot: (ptrs, x_try.data_ptr(), fused.params64.data_ptr(),
+                       fused.params32.data_ptr(), fused.exp_mask,
+                       fused.tanh_mask, int(boot), status.data_ptr(), L, m,
+                       d, stream)
+                for boot in (False, True)}
+            n = m - 2
+            feller = sum(i << (4 * k) for k, i in enumerate(
+                i for factor in fused.feller for i in factor))
+            self._update_fn = kernel_build.entry(
+                "lm_trip", "lm_update_fused_f64", _UPDATE_FUSED_ARGTYPES)
+            self._update_args = (
+                ptrs, x_try.data_ptr(), fused.params64.data_ptr(),
+                fused.params32.data_ptr(), fused.price.data_ptr(),
+                fused.jac.data_ptr(), fused.mkt.data_ptr(),
+                status.data_ptr(), *doubles, float(fused.weight),
+                math.sqrt(fused.bad_loss / m), 1.0 / math.sqrt(n),
+                int(c.maxiter), n, fused.exp_mask, fused.tanh_mask, feller,
+                L, m, d, stream)
+
+    def open(self, boot: bool = False) -> None:
+        """K6: one launch (``boot``: the fused mode's bootstrap trip)."""
+        kernel_build.check(self._open_fn(*self._open_args[
+            boot and self._fused]), self._open_key)
+        LAUNCHES[self._open_key] += 1
+
+    def update(self, r_try=None, j_try=None) -> None:
+        """K7: one launch, on ``(r_try, j_try)`` (unfused) or on the fused
+        buffers."""
+        if self._fused:
+            args = self._update_args
+        else:
+            _, r_try, j_try = _trial(self._st, self._x_try, r_try, j_try)
+            head, tail = self._update_args
+            args = (*head, r_try.data_ptr(), j_try.data_ptr(), *tail)
+        kernel_build.check(self._update_fn(*args), self._update_key)
+        LAUNCHES[self._update_key] += 1
 
 
 def lm_open(st: _State, config: LMConfig,
@@ -383,13 +607,7 @@ def lm_open(st: _State, config: LMConfig,
     if L == 0:
         status[0] = 0
         return x_try
-    dt = st.x.dtype
-    err = kernel_build.entry("lm_trip", f"lm_open_{_suffix(dt)}",
-                             _OPEN_ARGTYPES)(
-        _pointers(st), x_try.data_ptr(), status.data_ptr(), L, m, d,
-        torch.cuda.current_stream(st.x.device).cuda_stream)
-    kernel_build.check(err, _count_key("open", dt))
-    LAUNCHES[_count_key("open", dt)] += 1
+    LMTripKernels(st, config, status, x_try).open()
     return x_try
 
 
@@ -407,18 +625,7 @@ def lm_update(st: _State, x_try, r_try, j_try, config: LMConfig,
         return
     if L == 0:
         return
-    dt = st.x.dtype
-    c = config
-    err = kernel_build.entry("lm_trip", f"lm_update_{_suffix(dt)}",
-                             _UPDATE_ARGTYPES)(
-        _pointers(st), x_try.data_ptr(), r_try.data_ptr(), j_try.data_ptr(),
-        status.data_ptr(), float(c.ftol), float(c.gtol), float(c.xtol),
-        float(c.lambda_down), float(c.lambda_up), float(c.lambda_min),
-        float(c.lambda_max), float(10.0 * c.lambda_init),
-        float(c.cost_target), int(c.maxiter), L, m, d,
-        torch.cuda.current_stream(st.x.device).cuda_stream)
-    kernel_build.check(err, _count_key("update", dt))
-    LAUNCHES[_count_key("update", dt)] += 1
+    LMTripKernels(st, config, status, x_try).update(r_try, j_try)
 
 
 def read_live(status: torch.Tensor) -> int:
@@ -426,30 +633,72 @@ def read_live(status: torch.Tensor) -> int:
     return int(status.item())
 
 
-def _run(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
-         config: LMConfig, lam0: torch.Tensor = None,
-         open_fn: Callable = lm_open,
-         update_fn: Callable = lm_update) -> LMResult:
-    """The engine's loop over one pair of trip functions with the
-    wrappers' in-place signatures: the kernels (the default) or
-    ``_open_plain_inplace`` / ``_update_plain_inplace``, which the card's
-    checks run to hold the kernels against the plain pair. The bootstrap
-    trip's step is exactly zero, so it reuses ``r(x0)``."""
+def _bind_trip(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
+               config: LMConfig, lam0, status: torch.Tensor,
+               plain: bool):
+    """``(state, trip)``: the engine's state before its bootstrap trip and
+    one trip as a function of no arguments, bound once, so that everything
+    checked here raises before the first trip. An objective with
+    ``bind_trip(st, config, status, plain)`` and ``n_rows`` binds its own
+    trip (it returns None where its fused kernels do not take it). Else
+    the residuals are taken at x0 first (the bootstrap trip's step is
+    exactly zero, so that trip reuses them), and a trip is, on CUDA tensors
+    (unless ``plain``), K6, ``residual_fn`` and ``jac_fn`` at x_try, K7;
+    otherwise the plain versions in place."""
+    bind = getattr(residual_fn, "bind_trip", None)
+    if bind is not None:
+        st = init_state(x0, residual_fn.n_rows, config, lam0)
+        trip = bind(st, config, status, plain)
+        if trip is not None:
+            return st, trip
     dt = x0.dtype
-    r0 = residual_fn(x0)
-    st = init_state(x0, r0.shape[-1], config, lam0)
-    status = torch.zeros(1, dtype=torch.int32, device=x0.device)
-    live, first = x0.shape[0], True
-    while live:
-        x_try = open_fn(st, config, status)
-        r_try = r0 if first else residual_fn(x_try)
-        first = False
-        update_fn(st, x_try, r_try, jac_fn(x_try).to(dt), config, status)
-        live = read_live(status)
+    r0 = [residual_fn(x0)]
+    st = init_state(x0, r0[0].shape[-1], config, lam0)
+    _check_state(st)
+    _check_status(status, st.x.device)
+
+    def evaluate(x_try):
+        r_try = r0.pop() if r0 else residual_fn(x_try)
+        return r_try, jac_fn(x_try).to(dt)
+    if st.x.device.type == "cuda" and not plain:
+        x_try = torch.empty_like(st.x)
+        kernels = LMTripKernels(st, config, status, x_try)
+
+        def trip():
+            kernels.open()
+            kernels.update(*evaluate(x_try))
+        return st, trip
+
+    def trip():
+        x_try = _open_plain_inplace(st, config, status)
+        _, r_try, j_try = _trial(st, x_try, *evaluate(x_try))
+        _update_plain_inplace(st, x_try, r_try, j_try, config, status)
+    return st, trip
+
+
+def _result(st: _State) -> LMResult:
+    """The engine's result from its final state."""
     grad = 2.0 * torch.einsum("lmd,lm->ld", st.J, st.r)
     return LMResult(x=st.x, f=st.cost, grad=grad, r=st.r,
                     n_iters=st.n_iters, n_evals=st.n_evals,
                     converged=st.converged, lam=st.lam)
+
+
+def _run(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
+         config: LMConfig, lam0: torch.Tensor = None,
+         plain: bool = False) -> LMResult:
+    """The engine's loop: the trip bound once (``_bind_trip``), then one
+    trip and one host read of the live count until no lane is live. With
+    ``plain`` the trip runs the plain versions on any device, which the
+    card's checks hold the kernels to."""
+    status = torch.zeros(1, dtype=torch.int32, device=x0.device)
+    st, trip = _bind_trip(residual_fn, jac_fn, x0, config, lam0, status,
+                          plain)
+    live = x0.shape[0]
+    while live:
+        trip()
+        live = read_live(status)
+    return _result(st)
 
 
 def lm_minimize_batched(residual_fn: Callable, x0: torch.Tensor,
@@ -460,7 +709,12 @@ def lm_minimize_batched(residual_fn: Callable, x0: torch.Tensor,
 
     Args:
       residual_fn: ``[L, d] -> [L, m]`` at the precision of ``x0``; each
-        lane's residuals depend on that lane's row only.
+        lane's residuals depend on that lane's row only. The LM polish's
+        objective (``calibration/calibrator.py::PolishObjective``) binds
+        its own trip: on CUDA tensors fused K6, K1<double>, K3 and fused
+        K7 with n + 2 <= ``MAX_FUSED_ROWS`` residual rows a lane (else the
+        unfused trip around its host assembly); on CPU tensors their plain
+        versions.
       jac_fn: ``[L, d] -> [L, m, d]`` (any dtype; cast to ``x0``'s). The
         default is ``torch.func.jacfwd`` of ``residual_fn`` (plain tensor
         code only); the calibrator passes the K3 Jacobian.

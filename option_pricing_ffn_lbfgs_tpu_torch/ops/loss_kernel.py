@@ -42,9 +42,8 @@ import math
 import numpy as np
 import torch
 
-from ..calibration.loss import feller_penalty
-from ..calibration.transforms import (_EXP_IDX, _TANH_IDX, dtransform_dx,
-                                      transform)
+from ..calibration.loss import feller_penalty, residual_rows
+from ..calibration.transforms import _EXP_IDX, _TANH_IDX, transform
 from ..models.double_heston import DHParams, price_options
 from ..utils.config import CalibrationConfig, LBFGSConfig
 from . import kernel_build
@@ -171,6 +170,35 @@ def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
     fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms)
 
     def launch(_keep=(ins, price, grad)):
+        kernel_build.check(fn(*args), count)
+        LAUNCHES[count] += 1
+    return launch
+
+
+def bind_rows_jacobian(params, spots, rate, strikes, maturities, is_call,
+                       mkt, n_terms: int, L: float, q: float, groups, price,
+                       jac):
+    """K3 bound once, for the fused LM trip: a launcher with no arguments
+    that differentiates ``params [L, 13]`` (float32, rewritten in place
+    between launches) into the preallocated ``price [L, n]`` and ``jac
+    [L, n, 13]``. Every check of ``rows_jacobian`` runs here, once; CUDA
+    tensors only, at least one row."""
+    symbol, mode_no, count, ins = _inputs("jac", params, spots, strikes,
+                                          maturities, is_call, mkt, groups)
+    lanes, n_opt = strikes.shape
+    for name, t, shape in (("price", price, (lanes, n_opt)),
+                           ("jac", jac, (lanes, n_opt, 13))):
+        if (t.shape != shape or t.dtype != params.dtype
+                or t.device != params.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous {params.dtype} "
+                             f"{shape} on {params.device}")
+    if n_opt == 0:
+        raise ValueError("K3 needs at least one option a lane")
+    if not params.is_contiguous():
+        raise ValueError("params must be contiguous: K3 reads it in place")
+    fn, args = _args(symbol, mode_no, ins, price, jac, rate, q, L, n_terms)
+
+    def launch(_keep=(ins, price, jac)):
         kernel_build.check(fn(*args), count)
         LAUNCHES[count] += 1
     return launch
@@ -390,6 +418,15 @@ def torch_mean_order(n_lanes: int, n: int, dtype):
     return width, float(real(n_lanes) / real(n_lanes * n))
 
 
+def _dtransform(params):
+    """``dtransform_dx(x)`` from ``params = transform(x)``, in its bits:
+    exp coordinates the parameter itself, tanh ``1 - p^2``, 1 elsewhere."""
+    dtr = torch.ones_like(params)
+    dtr[:, _EXP_IDX] = params[:, _EXP_IDX]
+    dtr[:, _TANH_IDX] = 1.0 - params[:, _TANH_IDX] * params[:, _TANH_IDX]
+    return dtr
+
+
 def search_assembly_plain(price, g_price, mkt, params, weight: float,
                           bad_loss: float):
     """The search loss ``f [L]`` and its gradient in the unconstrained
@@ -412,10 +449,7 @@ def search_assembly_plain(price, g_price, mkt, params, weight: float,
     bad = torch.full_like(loss, bad_loss)
     loss = torch.where(any_bad, bad, loss)
     loss = torch.where(torch.isfinite(loss), loss, bad)
-    dtr = torch.ones_like(params)
-    dtr[:, _EXP_IDX] = params[:, _EXP_IDX]
-    dtr[:, _TANH_IDX] = 1.0 - params[:, _TANH_IDX] * params[:, _TANH_IDX]
-    gx = (g_price + pen_g) * dtr
+    gx = (g_price + pen_g) * _dtransform(params)
     gx = torch.where(any_bad[:, None], torch.zeros_like(gx), gx)
     gx = torch.where(torch.isfinite(gx), gx, torch.zeros_like(gx))
     return loss, gx
@@ -447,6 +481,32 @@ def make_batch_value_and_grad(spots, strikes, maturities, is_call,
                              market_prices, rate, config)
 
 
+def polish_jacobian_plain(j_price, params, weight: float):
+    """``[L, n + 2, 13]`` in the dtype of ``params = transform(x)``: K3's
+    pricing rows ``j_price [L, n, 13]``, then the two Feller rows, every
+    entry times ``dtransform_dx(x)`` (taken from ``params``): ``jacfwd`` of
+    ``surface_residuals`` in the unconstrained coordinates."""
+    J = torch.cat([j_price, _feller_jacobian(params, weight)], dim=1)
+    return J * _dtransform(params)[:, None, :]
+
+
+def polish_assembly_plain(price, j_price, mkt, params64, params32,
+                          weight: float, bad_loss: float):
+    """The LM polish's evaluation ``(r [L, n + 2], J [L, n + 2, 13])`` at
+    float64 from K1<double>'s prices ``[L, n]`` at ``params64 =
+    transform(x)`` and K3's float32 rows ``[L, n, 13]`` at ``params32 =
+    transform(float32(x))``: the residuals of
+    ``calibration/loss.py::residual_rows`` (the sentinel on every row of a
+    lane with an invalid price) and ``polish_jacobian_plain`` at float32
+    (a sentinel lane's rows left as computed), cast to float64. The host
+    assembly of the polish's objective and the plain version of fused
+    K7's prologue."""
+    r = residual_rows(price, DHParams.from_vector(params64), mkt, weight,
+                      bad_loss)
+    J = polish_jacobian_plain(j_price, params32, weight)
+    return r, J.to(params64.dtype)
+
+
 def make_batch_residual_jacobian(spots, strikes, maturities, is_call,
                                  market_prices, rate,
                                  config: CalibrationConfig):
@@ -464,12 +524,10 @@ def make_batch_residual_jacobian(spots, strikes, maturities, is_call,
     groups = maturity_groups(maturities)    # fixed across optimizer trips
 
     def jac(x):
-        x = x.to(dt)
-        params = transform(x)
+        params = transform(x.to(dt))
         _, j_price = rows_jacobian(params, spots, rate, strikes, maturities,
                                    is_call, mkt, pc.n_terms, pc.trunc_L,
                                    pc.dividend_yield, groups)
-        J = torch.cat([j_price, _feller_jacobian(params, weight)], dim=1)
-        return J * dtransform_dx(x)[:, None, :]
+        return polish_jacobian_plain(j_price, params, weight)
 
     return jac

@@ -36,7 +36,10 @@ count each input byte read once and each output byte written once:
     the arithmetic as the kernels write it: the m d^2 products and sums of
     J^T J, the factor's columns up to the first bad pivot, the two
     substitutions of a lane whose factor completes. Both are bound by
-    bytes.
+    bytes. In the fused mode (the LM polish's objective) K6 also writes
+    the trial parameters at both precisions, and K7 reads K1's prices, the
+    market prices and the parameters in place of r_try, and K3's float32
+    rows in place of j_try, and assembles r and J.
 
 ``bound_ms`` is the larger of operations over the card's peak rate for
 their type and bytes over its memory rate (NVIDIA H100 SXM data sheet:
@@ -254,6 +257,39 @@ def lm_update_work(st, r_try) -> Dict[str, float]:
               + n_acc * 2 * (d * t + m * d * t)    # x_try, j_try; x, r, J
               + n_acc * m * t)
     ops = n_live * (2 * m + 2 * d + 18)
+    return {"ops": ops, "bytes": nbytes}
+
+
+def lm_open_fused_work(st) -> Dict[str, float]:
+    """Operations and bytes of one fused K6 launch on the state ``st``
+    before it: K6's, and every lane's trial parameters at float64 and
+    float32 (an exp or tanh a coordinate, identity for one, at each)."""
+    w = lm_open_work(st)
+    L, d = st.x.shape
+    return {"ops": w["ops"] + 2 * L * (d - 1),
+            "bytes": w["bytes"] + L * d * (8 + 4)}
+
+
+def lm_update_fused_work(st, r_try, n_opt: int) -> Dict[str, float]:
+    """Operations and bytes of one fused K7 launch on the state ``st``
+    before it, whose assembled residuals are ``r_try``: K7's, where a live
+    lane reads its ``n_opt`` prices and market prices and its 13
+    parameters at both precisions in place of ``r_try``, and an accepting
+    lane K3's float32 rows in place of ``j_try``; the assembly's
+    operations (four a pricing row, the Feller rows, and on an accepted
+    step the Feller Jacobian rows and a chain-rule product an entry)."""
+    from .levenberg_marquardt import trial_cost
+    w = lm_update_work(st, r_try)
+    L, d = st.x.shape
+    m = st.r.shape[-1]
+    live = ~st.done
+    n_live = int(live.sum())
+    n_acc = int((live & (trial_cost(r_try) < st.cost)).sum())
+    nbytes = (w["bytes"]
+              + n_live * (2 * n_opt * 8 + d * (8 + 4) - m * 8)
+              + n_acc * (n_opt * d * 4 - m * d * 8))
+    ops = (w["ops"] + n_live * (4 * n_opt + 2 * 7)
+           + n_acc * (2 * 12 + m * d))
     return {"ops": ops, "bytes": nbytes}
 
 

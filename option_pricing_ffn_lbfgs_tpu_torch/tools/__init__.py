@@ -6,4 +6,6 @@ surrogate's training pipeline (``train_pipeline``), the graft-entry twin
 ``bench_raw_draws`` and ``make_results``, the L-BFGS trip's checks
 (``trip_check``: K4/K5 against their plain pair; ``hybrid_soak``: the
 error word over many hybrid calls) and the LM trip's (``lm_trip_check``:
-K6/K7 against theirs); nothing on a calibration path imports them."""
+K6/K7 and their fused modes against theirs), and whether the training
+path repeats its outcome across processes (``train_repeat``); nothing on
+a calibration path imports them."""

@@ -26,9 +26,11 @@ each run prints
   3. the hybrid on four slices of 512 generated surfaces: wall, L-BFGS
      and LM trips, error;
   4. the bench twin (6 sets x 5 surfaces): host wall per surface;
-  5. an LM trip of the polish (``calibrator._polish_lanes_fused``) at
-     1536 lanes (stage A's maxiter 10) and at 32 lanes (a wave's 16):
-     ms a trip (CUDA events over the whole polish, best of three);
+  5. an LM trip of the polish (``calibrator._polish_lanes_fused``: the
+     fused trip where the tree has it, else K6, K1<double> and K3 with the
+     host assembly, K7) at 1536 lanes (stage A's maxiter 10) and at 32
+     lanes (a wave's 16): ms a trip (CUDA events over the whole polish,
+     best of three);
 
 and the lines marked ``[ab]`` compare the sides over all their runs. With
 ``--kernels`` each run stops after part 1.

@@ -912,7 +912,8 @@ def test_lm_minimize_kernels_vs_plain(cuda, dt):
 
 def test_lm_launches_equal_k3(cuda):
     """calibrate_batch_mixed on 8 surfaces x 3 starts: every LM trip of the
-    float64 polish launches K6, K3 and K7 once, the bootstrap trip too."""
+    float64 polish launches fused K6, K1<double>, K3 and fused K7 once,
+    the bootstrap trip too, and no unfused K6/K7."""
     from option_pricing_ffn_lbfgs_tpu_torch.ops import levenberg_marquardt
     rng = np.random.default_rng(1)
     true = rng.uniform(LO, HI, (8, 13))
@@ -921,7 +922,8 @@ def test_lm_launches_equal_k3(cuda):
             torch.tensor(np.tile(MATS, (8, 1))),
             torch.ones((8, 15), dtype=torch.bool)]
     prices = port.price_surfaces(torch.tensor(true), data[0], 0.03, *data[1:])
-    counts = (loss_kernel.LAUNCHES, levenberg_marquardt.LAUNCHES)
+    counts = (loss_kernel.LAUNCHES, levenberg_marquardt.LAUNCHES,
+              cos_kernel.LAUNCHES)
     before = {k: v for c in counts for k, v in c.items()}
     port.calibrate_batch_mixed(data[0].to(cuda), 0.03,
                                *(a.to(cuda) for a in data[1:]),
@@ -930,8 +932,93 @@ def test_lm_launches_equal_k3(cuda):
     got = {k: v - before[k] for c in counts for k, v in c.items()}
     k3 = got["cos_vg_jac"]
     assert k3 > 0
-    assert got["lm_open_f64"] == got["lm_update_f64"] == k3
+    assert got["lm_open_fused_f64"] == got["lm_update_fused_f64"] == k3
+    assert got["cos_price_f64"] == k3
+    assert got["lm_open_f64"] == got["lm_update_f64"] == 0
     assert got["lm_open"] == got["lm_update"] == 0
+
+
+# The fused LM trip of the polish's objective (fused K6, K1<double>, K3,
+# fused K7) against its fused plain pair on the card, in bits
+# (tools/lm_trip_check.py): fused K6 after and on the bootstrap trip, fused
+# K7 on seeded inputs that take every branch of the assembly.
+@pytest.mark.parametrize("n_lanes", [15, 32, 1536, 1537])
+def test_lm_fused_trip_matches_plain(cuda, n_lanes):
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    rep = lm_trip_check.check_trip_fused(n_lanes, cuda, 9 + n_lanes)
+    assert rep["ok"], rep
+    if n_lanes == 1536:
+        assert all(v > 0 for v in rep["coverage"].values()), rep["coverage"]
+
+
+def test_lm_fused_engine_kernels_vs_plain(cuda):
+    """The polish's objective on 512 surfaces x 3 starts at stage A's
+    maxiter 10: the fused trip against its fused plain pair run on the
+    card, equal counts on every lane and x in bits."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    obj, x0 = lm_trip_check.polish_objective(512, 5, cuda)
+    rep = lm_trip_check.check_engine(
+        obj, obj.jac, x0, dataclasses.replace(calibrator.POLISH_LM,
+                                              maxiter=10))
+    assert rep["n_evals_equal"] and rep["n_iters_equal"], rep
+    assert rep["converged_equal"] and rep["x_bits_differ"] == 0, rep
+    assert rep["trips"] == 11, rep
+
+
+def test_lm_fused_polish_equals_host_assembly(cuda):
+    """The whole polish (POLISH_LM) on 512 surfaces x 3 starts on the
+    fused trip and on the unfused trip around the host assembly: the same
+    trips and every lane's x in bits."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    obj, x0 = lm_trip_check.polish_objective(512, 5, cuda)
+    rep = lm_trip_check.route_check(obj, x0, calibrator.POLISH_LM)
+    assert rep["n_evals_equal"] and rep["n_iters_equal"], rep
+    assert rep["converged_equal"] and rep["x_bits_differ"] == 0, rep
+    assert rep["f_rel"] == 0.0, rep
+
+
+def test_lm_fused_binding_raises_on_card(cuda):
+    """On the card there is no plain fallback: a float32 state, or a
+    state whose rows are not the objective's, raises at the binding,
+    before any launch."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import (
+        levenberg_marquardt as lm)
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import lm_trip_check
+    obj, x0 = lm_trip_check.polish_objective(2, 5, cuda, n_starts=1)
+    status = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = dict(lm.LAUNCHES)
+    for st in (lm.init_state(x0.float(), 17, port.LMConfig()),
+               lm.init_state(x0, 18, port.LMConfig())):
+        with pytest.raises(ValueError):
+            obj.bind_trip(st, port.LMConfig(), status, False)
+    assert lm.LAUNCHES == before
+
+
+def test_lm_wide_objective_takes_unfused_kernels_on_card(cuda):
+    """An objective with 127 options a lane (n + 2 > MAX_FUSED_ROWS)
+    binds no fused trip: on the card its polish runs unfused K6/K7 around
+    the host assembly, one of each a trip, and launches no fused K6/K7."""
+    from option_pricing_ffn_lbfgs_tpu_torch.ops import (
+        levenberg_marquardt as lm)
+    n = 127
+    t = lambda a: torch.tensor(np.asarray(a), dtype=F64, device=cuda)
+    spots, strikes, mats = t([100.0]), t(np.resize(STRIKES, n)[None]), \
+        t(np.resize(MATS, n)[None])
+    call = torch.ones((1, n), dtype=torch.bool, device=cuda)
+    prices = port.price_surfaces(t(_vec(TRUE)[None]), spots, 0.03, strikes,
+                                 mats, call)
+    obj = calibrator.polish_residual_and_jacobian(
+        spots, 0.03, strikes, mats, call, prices, CalibrationConfig())
+    assert obj.n_rows > lm.MAX_FUSED_ROWS
+    x0 = inverse_transform(t(_vec(TRUE)[None] * 1.05))
+    before = dict(lm.LAUNCHES)
+    res = lm.lm_minimize_batched(obj, x0, port.LMConfig(maxiter=3),
+                                 jac_fn=obj.jac)
+    got = {k: v - before[k] for k, v in lm.LAUNCHES.items()}
+    assert got["lm_open_fused_f64"] == got["lm_update_fused_f64"] == 0
+    assert got["lm_open_f64"] == got["lm_update_f64"] == int(
+        res.n_evals.max()) >= 2
+    assert bool(torch.isfinite(res.f).all())
 
 
 def test_lm_engine_raises_on_what_the_kernels_do_not_take(cuda):
