@@ -118,7 +118,15 @@ Phases:
      tools/profile_search.py at B = 512, K = 16 in a fresh process (its
      profiler windows complete; its launches read from its output),
      tools/bench_scaling.py at 1024 surfaces over 1 set, and
-     tools/bench_raw_draws.py beside the JAX package's record.
+     tools/bench_raw_draws.py beside the JAX package's record;
+ 17. the double-float pricer (models/double_heston_dd.py, float32
+     operations only) as an oracle for K1<double> (tools/dd_check.py): 200
+     generator-range surfaces x 15 calls, every DD price finite and within
+     1e-10 of K1<double>; the DD prices on the card against the CPU's
+     within 1e-11 (their float32 log/atan2/sqrt seeds round differently);
+     the golden demo call and the sigma_J = 0.25, tau = 0.1 case within
+     1e-9; both walls, for information. Not a main path: the DD pricer
+     runs no kernel of the port.
 
 Every phase prints its wall. Each main-path run (phases 6, 7, 9, 12, 13,
 14, 15, 16) is driven with the launch counts set to 0 just before it and
@@ -192,6 +200,7 @@ def main():
     from option_pricing_ffn_lbfgs_tpu_torch.utils.config import (
         CalibrationConfig, GeneratorConfig, PricerConfig)
     from option_pricing_ffn_lbfgs_tpu_torch.tools import bench as tbench
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import dd_check
     from option_pricing_ffn_lbfgs_tpu_torch.tools import error_ablation
     from option_pricing_ffn_lbfgs_tpu_torch.utils.hostpricer import (
         price_truth_subprocess)
@@ -2321,6 +2330,36 @@ def main():
           f"{raw_jax['mean_error_pct_feller_violated']:.5f} %)")
     check(np.all(np.isfinite(raw["per_surface_error_pct"])),
           "raw draws output malformed")
+
+    # ------------------------------------------- 17 double-float oracle --
+    # models/double_heston_dd.py prices from float32 operations alone: an
+    # oracle for K1<double> whose arithmetic shares none of its float64
+    # units (tools/dd_check.py). Not a main path: no kernel of the port
+    # runs in the DD pricer.
+    lap(17)
+    dd = dd_check.run(200)
+    print(f"[17] DD pricer {card}: {json.dumps(dd)}")
+    print(f"[17] DD vs K1<double>, 200 surfaces x 15 options: median "
+          f"{dd['vs_k1_median']:.3e}, worst {dd['vs_k1_worst']:.3e} relative "
+          "(bound 1e-10)")
+    print(f"[17] DD card vs CPU: median {dd['card_vs_cpu_median']:.3e}, "
+          f"worst {dd['card_vs_cpu_worst']:.3e} relative (bounds: median "
+          "1e-14, worst 1e-11)")
+    print(f"[17] wall on 200 x 15 options, N = 128 {card}: DD pricer "
+          f"{dd['dd_ms']:.2f} ms, K1<double> {dd['k1_ms']:.4f} ms (CUDA "
+          "events; for information)")
+    check(dd["shape"] == [200, 15] and dd["all_finite"],
+          "DD prices on the card not finite or malformed")
+    check(dd["vs_k1_worst"] < 1e-10, "DD prices disagree with K1<double>")
+    check(dd["card_vs_cpu_worst"] < 1e-11,
+          "DD prices on the card disagree with the CPU's")
+    check(dd["card_vs_cpu_median"] < 1e-14,
+          "DD prices on the card disagree with the CPU's in the median")
+    check(abs(dd["golden_call"] - dd_check.GOLDEN_CALL) < 1e-9,
+          "DD golden demo call off by 1e-9 or more")
+    check(np.isfinite(dd["sigma_j_dd"])
+          and abs(dd["sigma_j_dd"] / dd["sigma_j_k1"] - 1) < 1e-9,
+          "DD sigma_J case not finite or off by 1e-9 or more")
     lap(None)
     print(f"[walls] {json.dumps(walls)}")
 

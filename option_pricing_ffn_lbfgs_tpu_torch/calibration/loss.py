@@ -113,6 +113,38 @@ def make_residual_fn(spot, rate, strikes, maturities, is_call, market_prices,
     return residual_fn
 
 
+def make_residual_fn_dd(spot, rate, strikes, maturities, is_call,
+                        market_prices,
+                        config: CalibrationConfig = CalibrationConfig()):
+    """``make_residual_fn`` priced in double-float: float64 in and out,
+    float32 operations inside the pricer (``models/double_heston_dd.py``);
+    the Feller rows come from the DD parameters recombined to float64.
+
+    An oracle for the polish's residuals: the polish itself prices them on
+    K1<double> for either ``residual_impl`` (``utils/config.py``). The DD
+    modules are imported here, as in JAX, so the calibration path does not
+    load them.
+    """
+    from ..models.double_heston_dd import price_options_dd_core
+    from ..ops.doublefloat import to_f64
+    from .transforms import transform_to_params_dd
+
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64)
+    spot64, strikes64, mats64, market64 = (
+        f64(spot), f64(strikes), f64(maturities), f64(market_prices))
+
+    def residual_fn(x):
+        p_dd = transform_to_params_dd(x)
+        model = price_options_dd_core(
+            p_dd, spot64, rate, strikes64, mats64, is_call,
+            n_terms=config.pricer.n_terms, L=config.pricer.trunc_L,
+            q=config.pricer.dividend_yield)
+        p64 = DHParams(*(to_f64(v) for v in p_dd))
+        return residual_rows(model, p64, market64, config.feller_weight,
+                             config.bad_loss)
+    return residual_fn
+
+
 def make_loss_fn(spot, rate, strikes, maturities, is_call, market_prices,
                  config: CalibrationConfig = CalibrationConfig()):
     """Bind market data -> ``loss(x: [L, 13]) -> [L]``."""

@@ -64,6 +64,21 @@ def transform_to_params(x: torch.Tensor) -> DHParams:
     return DHParams.from_vector(transform(x))
 
 
+def transform_to_params_dd(x: torch.Tensor) -> DHParams:
+    """float64 unconstrained vector(s) ``[..., 13]`` -> DHParams of
+    double-float ``(hi, lo)`` float32 pairs of shape ``[...]``, with the
+    exp/tanh applied in DD arithmetic (``ops/doublefloat.py``), so the
+    parameters keep ~1e-15 precision without a float64 transcendental."""
+    from ..ops import doublefloat as df
+    x_dd = df.from_f64(torch.as_tensor(x, dtype=torch.float64))
+    e = df.exp(x_dd)
+    t = df.tanh(x_dd)
+    exp_m, tanh_m = _masks(x_dd[0])
+    hi = torch.where(exp_m, e[0], torch.where(tanh_m, t[0], x_dd[0]))
+    lo = torch.where(exp_m, e[1], torch.where(tanh_m, t[1], x_dd[1]))
+    return DHParams(*((hi[..., i], lo[..., i]) for i in range(13)))
+
+
 def params_to_x(params: DHParams) -> torch.Tensor:
     """DHParams -> unconstrained vector(s)."""
     return inverse_transform(params.to_vector())

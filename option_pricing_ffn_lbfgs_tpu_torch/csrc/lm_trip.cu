@@ -44,7 +44,8 @@
 //     sqrt(w max(0, sigma^2 - 2 kappa theta)) from params64, and the
 //     sentinel sqrt(bad_loss / m) on every row of a lane with an invalid
 //     price; J at float from K3's rows and the Feller rows taken from
-//     params32 (dv = (1 / (2 sqrt(w v))) w, which is ATen's w / y, then
+//     params32, the violation v evaluated in double and rounded to float
+//     (dv = (1 / (2 sqrt(w v))) w, which is ATen's w / y, then
 //     dv 2 p_sigma, (-dv) 2 p_theta, (-dv) 2 p_kappa), every entry times
 //     dtransform/dx (csrc/trip_transform.cuh), cast to double. A sentinel
 //     lane's J is left as computed, as the host path leaves it. The lane's
@@ -402,9 +403,12 @@ struct AssembledJac {
                 kk = feller_index(a.feller, f, 1),
                 th = feller_index(a.feller, f, 2);
       const float w = static_cast<float>(a.weight);
-      const float viol = q[s] * q[s] - 2.0f * q[kk] * q[th];
-      const bool active = viol > 0.0f;
-      const float safe = active ? viol : 1.0f;
+      // In double: products of floats are exact there, so the sign is
+      // the exact one (ops/loss_kernel.py::feller_violation).
+      const double viol = static_cast<double>(q[s]) * q[s] -
+                          2.0 * static_cast<double>(q[kk]) * q[th];
+      const bool active = viol > 0.0;
+      const float safe = active ? static_cast<float>(viol) : 1.0f;
       // weight / (2 sqrt(weight safe)): ATen's reciprocal, then times w
       const float dv =
           active ? (1.0f / (sqrtf(safe * w) * 2.0f)) * w : 0.0f;

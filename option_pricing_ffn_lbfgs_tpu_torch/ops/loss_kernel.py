@@ -278,16 +278,33 @@ def _feller_value_and_grad(params: torch.Tensor, weight: float):
     return pen, grad
 
 
+def feller_violation(params: torch.Tensor, s: int, k: int, t: int):
+    """``sigma^2 - 2 kappa theta`` of a float32 or float64 parameter tensor
+    ``[L, 13]``, evaluated in float64 and returned in the parameters'
+    dtype, with the activity ``viol > 0`` taken in float64.
+
+    Products of two float32 numbers are exact in float64, so for float32
+    parameters the float64 difference has the sign of the exact one. In
+    float32 both products round first, and near the Feller boundary (where
+    the polish often converges) they round to the same value at about 1
+    point in 4: the violation reads exactly 0, the row is inactive and the
+    LM step walks across the boundary, is rejected at any damping, and the
+    lane gives up. (XLA on the CPU contracts the difference into one fused
+    multiply-add, so the JAX package's float32 Jacobian there keeps the
+    exact sign at about 8 points in 10.) Returns ``(viol, active)``."""
+    p = params.to(torch.float64)
+    v = p[:, s] * p[:, s] - 2.0 * p[:, k] * p[:, t]
+    return v.to(params.dtype), v > 0.0
+
+
 def _feller_jacobian(params: torch.Tensor, weight: float):
     """``[L, 2, 13]`` Jacobian of the Feller residual rows
-    ``sqrt(weight * max(0, sigma^2 - 2 kappa theta))`` (0 where inactive)."""
-    p = DHParams.from_vector(params)
+    ``sqrt(weight * max(0, sigma^2 - 2 kappa theta))`` (0 where inactive),
+    the violation from ``feller_violation``."""
     jac = torch.zeros(params.shape[0], 2, 13, dtype=params.dtype,
                       device=params.device)
-    for row, (s, k, t), viol in (
-            (0, (3, 1, 2), p.sigma1**2 - 2.0 * p.kappa1 * p.theta1),
-            (1, (8, 6, 7), p.sigma2**2 - 2.0 * p.kappa2 * p.theta2)):
-        active = viol > 0.0
+    for row, (s, k, t) in enumerate(FELLER_IDX):
+        viol, active = feller_violation(params, s, k, t)
         safe = torch.where(active, viol, torch.ones_like(viol))
         # d sqrt(w v) / dv = w / (2 sqrt(w v)), zero on the inactive side.
         dv = torch.where(active, weight / (2.0 * torch.sqrt(weight * safe)),

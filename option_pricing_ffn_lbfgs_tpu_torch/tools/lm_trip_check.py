@@ -169,15 +169,19 @@ def random_fused(n_lanes: int, device, seed: int,
     price[sentinel, rows[sentinel]] = rng.choice(
         [0.0, -1.0, np.nan, np.inf], int(sentinel.sum()))
     # parameters near the generator's ranges; each factor above, on or
-    # below its Feller bound by lane
+    # below its Feller bound by lane, or at a tie: sigma = 1 - 2^-24 and
+    # 2 kappa theta = 1 - 2^-23, whose float products are equal while
+    # the exact violation is 2^-48 > 0
     p64 = rng.uniform(RANGE_LO, RANGE_HI, (L, 13))
     for f, (s_, k_, t_) in enumerate(FELLER_IDX):
-        case = (np.arange(L) // (1 + 2 * f)) % 3      # above, kink, below
+        case = (np.arange(L) // (1 + 2 * f)) % 4  # above, kink, below, tie
         case[kind == 7] = 2                           # tconv: no Feller row
-        p64[:, k_], p64[:, t_] = 0.5, 1.0             # 2 kappa theta = 1
+        p64[:, k_] = 0.5
+        p64[:, t_] = np.where(case == 3, 1.0 - 2.0**-23, 1.0)
         p64[:, s_] = np.where(case == 0, 1.0 + 1e-4 * rng.random(L),
                               np.where(case == 1, 1.0,
-                                       0.5 + 0.4 * rng.random(L)))
+                                       np.where(case == 3, 1.0 - 2.0**-24,
+                                                0.5 + 0.4 * rng.random(L))))
     p64[kind == 12, FELLER_IDX[0][0]] = 1e200         # sigma^2: inf
     with np.errstate(over="ignore"):
         p32 = p64.astype(np.float32)
@@ -291,16 +295,21 @@ def check_trip(n_lanes: int, dtype, device, seed: int,
 def fused_branches(trial) -> Counter:
     """How many lanes the fused K7's assembly takes each way: the
     sentinel, and each Feller factor above, on and below its bound at
-    float64 (the residual rows) and float32 (the Jacobian rows)."""
+    float64 (the residual rows) and float32 (the Jacobian rows, whose
+    violation is evaluated in double: ``feller_violation``), and at a
+    float32 tie (the float products equal, the violation positive)."""
     out = Counter()
     out["sentinel"] = int((~(torch.isfinite(trial.price)
                              & (trial.price > 0))).any(-1).sum())
     for name, q in (("64", trial.params64), ("32", trial.params32)):
         for f, (s_, k_, t_) in enumerate(FELLER_IDX):
-            v = q[:, s_] * q[:, s_] - 2.0 * q[:, k_] * q[:, t_]
+            v = q[:, s_].double() ** 2 - 2.0 * q[:, k_].double() * q[:, t_]
             out[f"feller{f + 1}_above_{name}"] = int((v > 0).sum())
             out[f"feller{f + 1}_kink_{name}"] = int((v == 0).sum())
             out[f"feller{f + 1}_below_{name}"] = int((v < 0).sum())
+            if name == "32":
+                tie = (q[:, s_] * q[:, s_] == 2.0 * q[:, k_] * q[:, t_])
+                out[f"feller{f + 1}_tie_32"] = int((tie & (v > 0)).sum())
     return out
 
 

@@ -22,7 +22,11 @@ accepted value selects that one engine, and any other value raises
     Jacobian is used at every lane count;
   * ``LMConfig.residual_impl`` in {"dd", "native"} — the double-float
     residual exists in JAX because XLA:TPU emulates float64; the H100 has
-    native FP64, so both values price the residuals at float64;
+    native FP64, so both values price the polish's residuals at float64 on
+    K1<double>. The double-float twin is here too
+    (``calibration/loss.py::make_residual_fn_dd`` over
+    ``models/double_heston_dd.py``), as an oracle for K1<double>, not as
+    the polish's route: on the card it is slower and less exact;
   * ``LMConfig.f32_jacobian`` must be True (the K3 Jacobian is float32);
   * ``LBFGSConfig.flat`` picks the engine of ``ops/lbfgs.py::
     lbfgs_minimize`` (one lane); the batched engine of the search and of

@@ -1031,3 +1031,21 @@ def test_lm_engine_raises_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="d <= 32"):
         lm.lm_minimize_batched(lambda x: x - 1.0, x0)
     assert lm.LAUNCHES == before
+
+
+def test_dd_pricer_is_an_oracle_for_k1_double(cuda):
+    """The double-float pricer (float32 operations only) against K1<double>
+    on 20 generator-range surfaces: finite, within 1e-10; on the card
+    against the CPU within 1e-11 at worst (their float32 log/atan2/sqrt
+    round differently, and the DD pricer's own error is ~4e-12) and within
+    1e-14 in the median (most prices agree in bits); the golden demo
+    call and the sigma_J = 0.25, tau = 0.1 case within 1e-9."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import dd_check
+    out = dd_check.run(20, timing=False)
+    assert out["shape"] == [20, 15] and out["all_finite"]
+    assert out["vs_k1_worst"] < 1e-10
+    assert out["card_vs_cpu_worst"] < 1e-11
+    assert out["card_vs_cpu_median"] < 1e-14
+    assert abs(out["golden_call"] - GOLDEN_DEMO_CALL) < 1e-9
+    assert abs(out["golden_put"] - GOLDEN_DEMO_PUT) < 1e-9
+    assert abs(out["sigma_j_dd"] / out["sigma_j_k1"] - 1) < 1e-9

@@ -12,7 +12,11 @@ called once on a one-rank CPU group; ``tools/graft_entry.py``,
 ``tools/profile_search.py``, ``tools/bench_raw_draws.py`` and
 ``tools/make_results.py``; ``tools/trip_check.py`` and
 ``tools/hybrid_soak.py``, the L-BFGS trip's checks; ``tools/lm_trip_check.py``,
-the LM trip's, with ``lm_minimize`` called once on the CPU), loads the shipped
+the LM trip's, with ``lm_minimize`` called once on the CPU; the
+double-float path, ``ops/doublefloat.py``, ``ops/complex_dd.py``,
+``models/double_heston_dd.py``, ``transform_to_params_dd``,
+``make_residual_fn_dd`` and ``tools/dd_check.py``, each called once on the
+CPU, and ``tools/error_ablation.py``'s fixture of JAX's starts read back), loads the shipped
 surrogate (``results/models/ffn_surrogate.pkl``) and a dataset pickled by
 the JAX package through the port, trains a surrogate for one epoch on the
 CPU and round-trips it through the checkpoint functions, and must find
@@ -46,7 +50,8 @@ for name in ("surrogate.train", "utils.checkpoint", "utils.logging_util",
              "tools.graft_entry", "tools.dist_check", "tools.bench_scaling",
              "tools.profile_search", "tools.bench_raw_draws",
              "tools.make_results", "tools.trip_check",
-             "tools.hybrid_soak", "tools.lm_trip_check"):
+             "tools.hybrid_soak", "tools.lm_trip_check", "ops.doublefloat",
+             "ops.complex_dd", "models.double_heston_dd", "tools.dd_check"):
     assert port.__name__ + "." + name in sys.modules, name
 import torch
 from option_pricing_ffn_lbfgs_tpu_torch.tools import bench
@@ -67,6 +72,17 @@ from option_pricing_ffn_lbfgs_tpu_torch.ops.levenberg_marquardt import (
     lm_minimize)
 r = lm_minimize(lambda x: x - 1.0, torch.zeros(3, dtype=torch.float64))
 assert bool(r.converged) and float(r.f) < 1e-20
+from option_pricing_ffn_lbfgs_tpu_torch.tools import dd_check, error_ablation
+dd = dd_check.run(2, device="cpu", timing=False)
+assert dd["all_finite"] and dd["vs_k1_worst"] < 1e-10
+from option_pricing_ffn_lbfgs_tpu_torch.calibration.loss import (
+    make_residual_fn_dd)
+starts = error_ablation.load_jax_starts()["x0"]
+assert starts.shape == (6, 5, 3, 13)
+r = make_residual_fn_dd(args[0][:1], 0.03, args[1][:1], args[2][:1],
+                        args[3][:1], args[4][:1])(
+    torch.as_tensor(starts[0, :1, 0], dtype=torch.float64))
+assert r.shape == (1, 17) and bool(torch.isfinite(r).all())
 model = port.load_default_model()
 ds = port.load_dataset(sys.argv[1], device="cpu")
 assert ds.n_samples == 2 and model.model.head.out_features == 13
