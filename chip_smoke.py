@@ -205,7 +205,7 @@ def main():
     from option_pricing_ffn_lbfgs_tpu_torch.utils.hostpricer import (
         price_truth_subprocess)
     from option_pricing_ffn_lbfgs_tpu_torch.utils.timing import (
-        CudaTimer, cuda_time_ms, profile_complete)
+        CudaTimer, cuda_time_ms, device_ops, device_us, profile_complete)
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -829,8 +829,6 @@ def main():
 
     # ------------------------------------------------- 5b K4/K5, the trip --
     lap("5b")
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
     from option_pricing_ffn_lbfgs_tpu_torch.utils.config import LBFGSConfig
     lb = lbfgs_batched
@@ -960,7 +958,7 @@ def main():
         torch.cuda.synchronize()
         prof, _, _ = profile_complete(launches, lambda p: bool(mine(p)),
                                       device=dev)
-        return sum(dev_us(e) for e in mine(prof)) / 20 / 1e3
+        return sum(device_us(e) for e in mine(prof)) / 20 / 1e3
 
     for n_lanes, dt, keep in ((1536, f32, True), (15, f64, True),
                               (1536, f64, False), (15, f32, False)):
@@ -1231,21 +1229,21 @@ def main():
           f"{one_ms / 1e3:.3f} s")
     # torch.profiler over one more compacted call: the device's busy time
     # (the sum of its kernels' time) and the K2 + K3 share of the
-    # unprofiled wall just measured. Device-side entries only (kernels,
-    # copies): a CPU op such as aten::index also carries the time of the
-    # kernel it launched. A window that recorded no K2 is taken again.
-    k2_seen = lambda p: any("cos_vg_kernel" in e.key for e in p.key_averages()
-                            if dev_us(e) > 0 and "CUDA" in str(e.device_type))
+    # unprofiled wall just measured. Device work only (``device_ops``:
+    # kernels, copies): a CPU op such as aten::index also carries the time
+    # of the kernel it launched, and the program's spans, user annotations
+    # on the card too, each span its kernels and the gaps between. A
+    # window that recorded no K2 is taken again.
+    k2_seen = lambda p: any("cos_vg_kernel" in e.key for e in device_ops(p))
     prof, (_, prof_ms), n_win = profile_complete(lambda: timed(slice_cfg),
                                                  k2_seen, device=dev)
-    on_dev = [e for e in prof.key_averages()
-              if dev_us(e) > 0 and "CUDA" in str(e.device_type)]
-    busy = sum(dev_us(e) for e in on_dev) / 1e3
-    vg = sum(dev_us(e) for e in on_dev if "cos_vg_kernel" in e.key) / 1e3
-    k1 = sum(dev_us(e) for e in on_dev if "cos_price_kernel" in e.key) / 1e3
-    k67 = sum(dev_us(e) for e in on_dev if "lm_open_kernel" in e.key
+    on_dev = device_ops(prof)
+    busy = sum(device_us(e) for e in on_dev) / 1e3
+    vg = sum(device_us(e) for e in on_dev if "cos_vg_kernel" in e.key) / 1e3
+    k1 = sum(device_us(e) for e in on_dev if "cos_price_kernel" in e.key) / 1e3
+    k67 = sum(device_us(e) for e in on_dev if "lm_open_kernel" in e.key
               or "lm_update_kernel" in e.key) / 1e3
-    k45 = sum(dev_us(e) for e in on_dev if "lbfgs_open_kernel" in e.key
+    k45 = sum(device_us(e) for e in on_dev if "lbfgs_open_kernel" in e.key
               or "lbfgs_update_kernel" in e.key) / 1e3
     n_ops = sum(e.count for e in on_dev)
     unprof = min(wave_ms, wave_ms_b)
@@ -1260,8 +1258,9 @@ def main():
     check(vg > 0, "the profile shows no cos_vg_kernel time")
     check(n_ops <= 21000, f"{n_ops} device kernels and copies in one 512 x 3 "
           "call: the fused search trip should leave at most 21,000")
-    for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
-        print(f"[7]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    for e in sorted(on_dev, key=device_us, reverse=True)[:6]:
+        print(f"[7]   {device_us(e) / 1e3:9.2f} ms  x{e.count:<6d} "
+              f"{e.key[:90]}")
     # An LM trip of the polish, fused (fused K6, K1<double>, K3, fused K7,
     # the read) and around the host assembly (K6, K1<double> and K3 with
     # their assembly, K7, the read), in turns: stage A's 1536 lanes, and 32
@@ -1927,13 +1926,10 @@ def main():
         train_epoch(xb, yb, g_dev)
     host_ms = (time.perf_counter() - t0) * 1e3
     step_ms = timer.ms / 50
-    # Device entries that are kernels or copies: a user annotation such as
-    # "Optimizer.step#Adam.step" spans its kernels and the gaps between. A
-    # window that recorded none is taken again.
-    step_entries = lambda p: [
-        e for e in p.key_averages()
-        if dev_us(e) > 0 and "CUDA" in str(e.device_type)
-        and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    # Device entries that are kernels or copies (``device_ops``): a user
+    # annotation such as "Optimizer.step#Adam.step" spans its kernels and
+    # the gaps between. A window that recorded none is taken again.
+    step_entries = lambda p: [e for e in device_ops(p) if "#" not in e.key]
 
     def profiled_epoch():
         with CudaTimer() as t_:
@@ -1943,7 +1939,7 @@ def main():
         profiled_epoch, lambda p: bool(step_entries(p)), device=dev)
     averages = prof.key_averages()
     on_dev = step_entries(prof)
-    busy = sum(dev_us(e) for e in on_dev) / 1e3
+    busy = sum(device_us(e) for e in on_dev) / 1e3
     n_ops = sum(e.count for e in on_dev)
     n_aten = sum(e.count for e in averages if e.key.startswith("aten::"))
     print(f"[14] train step, batch 256, 50 steps {card}: {step_ms:.4f} ms a "
@@ -1953,8 +1949,9 @@ def main():
           f"step, busy {busy:.3f} ms = {100 * busy / timer.ms:.1f} % of the "
           f"unprofiled wall ({timer.ms:.2f} ms; profiled {t_prof.ms:.2f} "
           f"ms; profiler windows {n_win})")
-    for e in sorted(on_dev, key=dev_us, reverse=True)[:6]:
-        print(f"[14]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    for e in sorted(on_dev, key=device_us, reverse=True)[:6]:
+        print(f"[14]   {device_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:80]}")
     margin("train steps' device busy ms", f"{busy:.3f}", "> 0",
            f"{busy:.3f}")
     check(busy > 0, "the profile shows no device time for the train steps")

@@ -50,6 +50,7 @@ from ..ops.loss_kernel import (EXP_MASK, FELLER_IDX, TANH_MASK,
                                bind_rows_jacobian, make_batch_value_and_grad,
                                maturity_groups, polish_jacobian_plain,
                                rows_jacobian)
+from ..utils import tracing
 from ..utils.config import (CalibrationConfig, LBFGSConfig, LMConfig,
                             validate_calibration)
 from ..utils.results import CalibrationResult
@@ -111,6 +112,7 @@ def _take(a: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return a[torch.arange(a.shape[0], device=a.device), win]
 
 
+@tracing.entry_point
 def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
                     market_prices,
                     generator: Optional[torch.Generator] = None,
@@ -132,30 +134,33 @@ def calibrate_batch(spots, rate: float, strikes, maturities, is_call,
     spots, strikes, maturities, is_call, mkt = _inputs(
         spots, strikes, maturities, is_call, market_prices, dtype, dev)
     b = spots.shape[0]
-    if x0 is None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        x0 = initial_guesses(n_starts, generator, spots, strikes, maturities,
-                             mkt)
-    else:
-        x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
-        if x0.shape != (b, n_starts, 13):
-            raise ValueError(f"x0 must be [{b}, {n_starts}, 13], got "
-                             f"{tuple(x0.shape)}")
-    rep = lambda a: torch.repeat_interleave(a, n_starts, dim=0)
-    vg = make_batch_value_and_grad(rep(spots), rep(strikes), rep(maturities),
-                                   rep(is_call), rep(mkt), rate, config)
-    res = lbfgs_minimize_batched(vg, x0.reshape(b * n_starts, 13),
-                                 config.lbfgs)
-    shape2 = lambda a: a.reshape(b, n_starts, *a.shape[1:])
-    masked, win = _winner(shape2(res.f))
-    xs = shape2(res.x)
-    x_best = _take(xs, win)
-    params_vec = transform(x_best)
-    pc = config.pricer
-    model = price_surfaces(params_vec, spots, rate, strikes, maturities,
-                           is_call, n_terms=pc.n_terms, L=pc.trunc_L,
-                           q=pc.dividend_yield)
+    with tracing.span("search"):
+        if x0 is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            x0 = initial_guesses(n_starts, generator, spots, strikes,
+                                 maturities, mkt)
+        else:
+            x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
+            if x0.shape != (b, n_starts, 13):
+                raise ValueError(f"x0 must be [{b}, {n_starts}, 13], got "
+                                 f"{tuple(x0.shape)}")
+        rep = lambda a: torch.repeat_interleave(a, n_starts, dim=0)
+        vg = make_batch_value_and_grad(rep(spots), rep(strikes),
+                                       rep(maturities), rep(is_call),
+                                       rep(mkt), rate, config)
+        res = lbfgs_minimize_batched(vg, x0.reshape(b * n_starts, 13),
+                                     config.lbfgs)
+        shape2 = lambda a: a.reshape(b, n_starts, *a.shape[1:])
+        masked, win = _winner(shape2(res.f))
+        xs = shape2(res.x)
+        x_best = _take(xs, win)
+    with tracing.span("reprice"):
+        params_vec = transform(x_best)
+        pc = config.pricer
+        model = price_surfaces(params_vec, spots, rate, strikes, maturities,
+                               is_call, n_terms=pc.n_terms, L=pc.trunc_L,
+                               q=pc.dividend_yield)
     return BatchCalibration(
         x=x_best, params=params_vec, loss=_take(masked, win),
         model_prices=model,
@@ -304,16 +309,17 @@ def polish_residual_and_jacobian(lane_spots, rate, lane_strikes, lane_mats,
 
 def _polish_lanes_fused(lane_spots, rate, lane_strikes, lane_mats, lane_call,
                         lane_mkt, x0, lam0, config: CalibrationConfig,
-                        polish: LMConfig):
+                        polish: LMConfig, live: int = None):
     """Batched LM over flat lanes: float64 residuals from K1<double>, the
     float32 Jacobian from K3, on the objective's fused trip (fused K6,
     K1<double>, K3, fused K7 and one read a trip on the card). Lane tensors
-    are float64 ``[L, ...]``."""
+    are float64 ``[L, ...]``; with ``live`` the lanes from ``live`` on are
+    padding, which starts done (``lm_minimize_batched``)."""
     objective = polish_residual_and_jacobian(
         lane_spots, rate, lane_strikes, lane_mats, lane_call, lane_mkt,
         config)
     res = lm_minimize_batched(objective, x0, polish, jac_fn=objective.jac,
-                              lam0=lam0)
+                              lam0=lam0, live=live)
     n_opt = lane_mkt.shape[-1]
     params_vec = transform(res.x)
     model = lane_mkt * (1.0 + res.r[:, :n_opt] * math.sqrt(n_opt))
@@ -374,55 +380,63 @@ def _continue_unconverged(spots, rate, strikes, maturities, is_call,
     """One compacted wave: gather the (surface, start) lanes still
     unconverged and within ``polish_continue_margin`` of their surface's
     best polished loss, pad them to a power-of-two bucket of at least 32
-    (at most B * S), continue them for ``maxiter`` more LM iterations from
+    (at most B * S; the padding, copies of the first lane, starts done and
+    is dropped), continue them for ``maxiter`` more LM iterations from
     their damping (clipped to [lambda_init, 1e2]), and scatter the results
-    back (iteration and evaluation counts add up)."""
+    back (iteration and evaluation counts add up). Its span ``polish.wave``
+    is left out of the store where no lane is left."""
     polish = dataclasses.replace(polish, maxiter=maxiter)
     b, s = res.x.shape[:2]
-    conv = res.converged.cpu().numpy()
-    f = res.f.cpu().numpy()
-    with np.errstate(invalid="ignore"):
-        best = np.nanmin(np.where(np.isfinite(f), f, np.nan), axis=1,
-                         keepdims=True)
-    matter = np.isfinite(f) & (f <= best * polish_config.polish_continue_margin)
-    idx = np.nonzero((~conv & matter).reshape(-1))[0]
-    if idx.size == 0:
-        return res, params_vec, model
-    n_pad = min(max(32, 1 << int(idx.size - 1).bit_length()), b * s)
-    pad_idx = np.concatenate(
-        [idx, np.full(n_pad - idx.size, idx[0], np.int64)])
-    dev = res.x.device
-    surf = torch.as_tensor(pad_idx // s, device=dev)
-    lanes = torch.as_tensor(pad_idx, device=dev)
-    live = torch.as_tensor(idx, device=dev)
-    WAVE_LANES.append((int(idx.size), int(n_pad)))
-
     flat = lambda a: a.reshape(b * s, *a.shape[2:])
-    lam0 = torch.clamp(flat(res.lam)[lanes], polish.lambda_init, 1e2)
-    resB, paramsB, modelB = _polish_lanes_fused(
-        spots[surf], rate, strikes[surf], maturities[surf], is_call[surf],
-        market_prices[surf], flat(res.x)[lanes], lam0, polish_config, polish)
+    with tracing.span("polish.wave") as wave:
+        with tracing.span("polish.compact"):
+            conv = res.converged.cpu().numpy()
+            f = res.f.cpu().numpy()
+            with np.errstate(invalid="ignore"):
+                best = np.nanmin(np.where(np.isfinite(f), f, np.nan), axis=1,
+                                 keepdims=True)
+            matter = np.isfinite(f) & (
+                f <= best * polish_config.polish_continue_margin)
+            idx = np.nonzero((~conv & matter).reshape(-1))[0]
+            if idx.size == 0:
+                wave.drop()
+                return res, params_vec, model
+            n_pad = min(max(32, 1 << int(idx.size - 1).bit_length()), b * s)
+            pad_idx = np.concatenate(
+                [idx, np.full(n_pad - idx.size, idx[0], np.int64)])
+            dev = res.x.device
+            surf = torch.as_tensor(pad_idx // s, device=dev)
+            lanes = torch.as_tensor(pad_idx, device=dev)
+            live = torch.as_tensor(idx, device=dev)
+            WAVE_LANES.append((int(idx.size), int(n_pad)))
+            lam0 = torch.clamp(flat(res.lam)[lanes], polish.lambda_init, 1e2)
+            wave_inputs = (spots[surf], rate, strikes[surf], maturities[surf],
+                           is_call[surf], market_prices[surf],
+                           flat(res.x)[lanes], lam0)
+        resB, paramsB, modelB = _polish_lanes_fused(
+            *wave_inputs, polish_config, polish, live=int(idx.size))
 
-    def put(whole, part):
-        out = flat(whole).clone()
-        out[live] = part[:idx.size]
-        return out.reshape(whole.shape)
+        def put(whole, part):
+            out = flat(whole).clone()
+            out[live] = part[:idx.size]
+            return out.reshape(whole.shape)
 
-    def add(whole, part):
-        out = flat(whole).clone()
-        out[live] += part[:idx.size]
-        return out.reshape(whole.shape)
+        def add(whole, part):
+            out = flat(whole).clone()
+            out[live] += part[:idx.size]
+            return out.reshape(whole.shape)
 
-    res = res._replace(
-        x=put(res.x, resB.x), f=put(res.f, resB.f),
-        grad=put(res.grad, resB.grad), r=put(res.r, resB.r),
-        n_iters=add(res.n_iters, resB.n_iters),
-        n_evals=add(res.n_evals, resB.n_evals),
-        converged=put(res.converged, resB.converged),
-        lam=put(res.lam, resB.lam))
-    return res, put(params_vec, paramsB), put(model, modelB)
+        res = res._replace(
+            x=put(res.x, resB.x), f=put(res.f, resB.f),
+            grad=put(res.grad, resB.grad), r=put(res.r, resB.r),
+            n_iters=add(res.n_iters, resB.n_iters),
+            n_evals=add(res.n_evals, resB.n_evals),
+            converged=put(res.converged, resB.converged),
+            lam=put(res.lam, resB.lam))
+        return res, put(params_vec, paramsB), put(model, modelB)
 
 
+@tracing.entry_point
 def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
                           market_prices,
                           generator: Optional[torch.Generator] = None,
@@ -471,9 +485,10 @@ def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
         spots, strikes, maturities, is_call, market_prices, f64, dev)
     b = spots.shape[0]
     if not (polish_all_starts and isinstance(polish, LMConfig)):
-        res, params_vec, model = _polish_winners(
-            spots, rate, strikes, maturities, is_call, mkt, out32.x.to(f64),
-            config, polish)
+        with tracing.span("polish.winner"):
+            res, params_vec, model = _polish_winners(
+                spots, rate, strikes, maturities, is_call, mkt,
+                out32.x.to(f64), config, polish)
         _, win32 = _winner(out32.per_start_loss)
         per_start_x = out32.per_start_x.to(f64, copy=True)
         per_start_x[torch.arange(b, device=dev), win32] = res.x
@@ -489,9 +504,10 @@ def calibrate_batch_mixed(spots, rate: float, strikes, maturities, is_call,
     stage_a = (dataclasses.replace(polish,
                                    maxiter=config.polish_stage_a_maxiter)
                if compact else polish)
-    res, params_vec, model = _polish_starts_fused(
-        spots, rate, strikes, maturities, is_call, mkt,
-        out32.per_start_x.to(f64), polish_config, stage_a)
+    with tracing.span("polish.stage_a"):
+        res, params_vec, model = _polish_starts_fused(
+            spots, rate, strikes, maturities, is_call, mkt,
+            out32.per_start_x.to(f64), polish_config, stage_a)
     if compact:
         for wave_iters in config.polish_wave_budgets:
             res, params_vec, model = _continue_unconverged(

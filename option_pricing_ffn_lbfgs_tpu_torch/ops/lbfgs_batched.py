@@ -60,6 +60,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils import tracing
 from ..utils.config import LBFGSConfig
 from . import kernel_build
 
@@ -746,16 +747,16 @@ def _bind_trip(vg_fn: Callable, st: _BState, config: LBFGSConfig,
 def _run(vg_fn: Callable, x0: torch.Tensor, config: LBFGSConfig,
          plain: bool = False) -> LBFGSResult:
     """The engine's loop: the trip bound once (``_bind_trip``), then one
-    trip and one host read of the live count until no lane is live. With
-    ``plain`` the trip runs the plain versions on any device, which the
-    card's checks hold the kernels to."""
+    trip and one host read of the live count until no lane is live
+    (``tracing.trips``, which inside a recorded entry adds its span and
+    counters, ``utils/tracing.py``). With ``plain`` the trip runs the
+    plain versions on any device, which the card's checks hold the
+    kernels to."""
     st = init_state(x0, config.history)
     status = torch.zeros(2, dtype=torch.int32, device=x0.device)
     trip = _bind_trip(vg_fn, st, config, status, plain)
-    live = x0.shape[0]
-    while live:
-        trip()
-        live = read_live(status)
+    lanes = x0.shape[0]
+    tracing.trips("lbfgs", lanes, lanes, trip, lambda: read_live(status))
     return LBFGSResult(x=st.x, f=st.f, grad=st.g, n_iters=st.n_iters,
                        n_evals=st.n_evals, converged=st.converged)
 

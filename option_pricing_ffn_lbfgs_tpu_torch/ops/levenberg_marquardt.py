@@ -68,6 +68,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..calibration.transforms import transform
+from ..utils import tracing
 from ..utils.config import LMConfig
 from . import kernel_build
 from .loss_kernel import polish_assembly_plain
@@ -150,10 +151,12 @@ assert tuple(_LAYOUT) == _State._fields
 
 
 def init_state(x0: torch.Tensor, m: int, config: LMConfig,
-               lam0: torch.Tensor = None) -> _State:
+               lam0: torch.Tensor = None, live: int = None) -> _State:
     """The engine's state before its first (bootstrap) trip: residuals
     NaN, a zero Jacobian, an infinite cost. Every field is a tensor of its
-    own, so the kernels may update them in place; ``x0`` is copied."""
+    own, so the kernels may update them in place; ``x0`` is copied. With
+    ``live`` the lanes from ``live`` on start done (padding): every trip
+    holds them, and the live count leaves them out."""
     dt, dev = x0.dtype, x0.device
     L, d = x0.shape
     shapes = {"d": (L, d), "m": (L, m), "md": (L, m, d), "": (L,)}
@@ -166,6 +169,8 @@ def init_state(x0: torch.Tensor, m: int, config: LMConfig,
     st["x"] = x0.clone()
     if lam0 is not None:
         st["lam"] = lam0.to(dtype=dt, device=dev).clone().reshape(L)
+    if live is not None:
+        st["done"][live:] = True
     return _State(**st)
 
 
@@ -635,10 +640,11 @@ def read_live(status: torch.Tensor) -> int:
 
 def _bind_trip(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
                config: LMConfig, lam0, status: torch.Tensor,
-               plain: bool):
-    """``(state, trip)``: the engine's state before its bootstrap trip and
-    one trip as a function of no arguments, bound once, so that everything
-    checked here raises before the first trip. An objective with
+               plain: bool, live: int = None):
+    """``(state, trip)``: the engine's state before its bootstrap trip
+    (``init_state``, with ``live``) and one trip as a function of no
+    arguments, bound once, so that everything checked here raises before
+    the first trip. An objective with
     ``bind_trip(st, config, status, plain)`` and ``n_rows`` binds its own
     trip (it returns None where its fused kernels do not take it). Else
     the residuals are taken at x0 first (the bootstrap trip's step is
@@ -647,13 +653,13 @@ def _bind_trip(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
     otherwise the plain versions in place."""
     bind = getattr(residual_fn, "bind_trip", None)
     if bind is not None:
-        st = init_state(x0, residual_fn.n_rows, config, lam0)
+        st = init_state(x0, residual_fn.n_rows, config, lam0, live)
         trip = bind(st, config, status, plain)
         if trip is not None:
             return st, trip
     dt = x0.dtype
     r0 = [residual_fn(x0)]
-    st = init_state(x0, r0[0].shape[-1], config, lam0)
+    st = init_state(x0, r0[0].shape[-1], config, lam0, live)
     _check_state(st)
     _check_status(status, st.x.device)
 
@@ -686,25 +692,27 @@ def _result(st: _State) -> LMResult:
 
 def _run(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
          config: LMConfig, lam0: torch.Tensor = None,
-         plain: bool = False) -> LMResult:
+         plain: bool = False, live: int = None) -> LMResult:
     """The engine's loop: the trip bound once (``_bind_trip``), then one
-    trip and one host read of the live count until no lane is live. With
-    ``plain`` the trip runs the plain versions on any device, which the
-    card's checks hold the kernels to."""
+    trip and one host read of the live count until no lane is live
+    (``tracing.trips``, which inside a recorded entry adds its span and
+    counters, ``utils/tracing.py``). With ``plain`` the trip runs the
+    plain versions on any device, which the card's checks hold the
+    kernels to. With ``live`` only the first ``live`` lanes are solved."""
     status = torch.zeros(1, dtype=torch.int32, device=x0.device)
     st, trip = _bind_trip(residual_fn, jac_fn, x0, config, lam0, status,
-                          plain)
-    live = x0.shape[0]
-    while live:
-        trip()
-        live = read_live(status)
+                          plain, live)
+    lanes = x0.shape[0]
+    tracing.trips("lm", lanes, lanes if live is None else live, trip,
+                  lambda: read_live(status))
     return _result(st)
 
 
 def lm_minimize_batched(residual_fn: Callable, x0: torch.Tensor,
                         config: LMConfig = LMConfig(),
                         jac_fn: Callable = None,
-                        lam0: torch.Tensor = None) -> LMResult:
+                        lam0: torch.Tensor = None,
+                        live: int = None) -> LMResult:
     """Minimize ``sum(residual_fn(x)**2, -1)`` for every lane of ``x0``.
 
     Args:
@@ -719,6 +727,9 @@ def lm_minimize_batched(residual_fn: Callable, x0: torch.Tensor,
         default is ``torch.func.jacfwd`` of ``residual_fn`` (plain tensor
         code only); the calibrator passes the K3 Jacobian.
       lam0: optional ``[L]`` initial damping (continuation warm start).
+      live: solve only the first ``live`` lanes; the rest are padding to a
+        bucketed size, start done and keep ``x0`` (their other fields
+        are the bootstrap's: NaN residuals, an infinite cost).
     On CUDA tensors every trip runs K6 and K7; on CPU tensors their plain
     versions.
     """
@@ -728,4 +739,4 @@ def lm_minimize_batched(residual_fn: Callable, x0: torch.Tensor,
             # Jacobian, since lanes are independent.
             zero = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
             return torch.func.jacfwd(lambda dl: residual_fn(x + dl))(zero)
-    return _run(residual_fn, jac_fn, x0, config, lam0)
+    return _run(residual_fn, jac_fn, x0, config, lam0, live=live)

@@ -23,13 +23,15 @@ from typing import NamedTuple
 import torch
 
 from ..calibration.calibrator import (
-    POLISH_LM, BatchCalibration, _device_of, _inputs, _polish_lanes_fused,
-    _polish_pricer_config, _winner, calibrate_batch, surface_loss_k1)
+    POLISH_LM, WAVE_LANES, BatchCalibration, _device_of, _inputs,
+    _polish_lanes_fused, _polish_pricer_config, _winner, calibrate_batch,
+    surface_loss_k1)
 from ..calibration.initial_guess import GUESS0
 from ..calibration.transforms import inverse_transform, transform
 from ..ops.cos_kernel import price_surfaces
 from ..ops.lbfgs_batched import lbfgs_minimize_batched
 from ..ops.loss_kernel import make_batch_value_and_grad
+from ..utils import tracing
 from ..utils.config import CalibrationConfig, validate_calibration
 from .train import TrainedSurrogate
 
@@ -82,6 +84,7 @@ def hybrid_calibrate(surrogate: TrainedSurrogate, spot, rate: float, strikes,
                         ffn_loss=ffn_loss[0], iterations=res.n_iters[0])
 
 
+@tracing.entry_point
 def hybrid_calibrate_batch_mixed(surrogate: TrainedSurrogate, spots,
                                  rate: float, strikes, maturities, is_call,
                                  market_prices,
@@ -98,23 +101,26 @@ def hybrid_calibrate_batch_mixed(surrogate: TrainedSurrogate, spots,
     holds the float32 refine iterates with the winner's row replaced by
     its polished iterate, ``per_start_loss`` the refine losses;
     ``iterations`` and ``n_evals`` add the winner's refine and polish
-    counts; ``converged`` is the polish's or the refine's flag.
+    counts; ``converged`` is the polish's or the refine's flag. It runs
+    no compacted waves: ``calibrator.WAVE_LANES`` is left empty.
     """
     if polish is None:
         polish = POLISH_LM
     validate_calibration(config, polish)
+    WAVE_LANES.clear()
     f32, f64 = torch.float32, torch.float64
     dev = _device_of(market_prices, device)
     spots32, _, _, _, mkt32 = _inputs(spots, strikes, maturities, is_call,
                                       market_prices, f32, dev)
-    x0 = surrogate.predict_x(mkt32, spots32).to(f32)              # [B, 13]
-    b = x0.shape[0]
-    if safeguard_start:
-        g0 = inverse_transform(torch.as_tensor(GUESS0, dtype=f32,
-                                               device=dev))
-        x0 = torch.stack([x0, g0.expand(b, 13)], dim=1)           # [B, 2, 13]
-    else:
-        x0 = x0[:, None, :]                                       # [B, 1, 13]
+    with tracing.span("ffn"):
+        x0 = surrogate.predict_x(mkt32, spots32).to(f32)          # [B, 13]
+        b = x0.shape[0]
+        if safeguard_start:
+            g0 = inverse_transform(torch.as_tensor(GUESS0, dtype=f32,
+                                                   device=dev))
+            x0 = torch.stack([x0, g0.expand(b, 13)], dim=1)       # [B, 2, 13]
+        else:
+            x0 = x0[:, None, :]                                   # [B, 1, 13]
     refine_config = dataclasses.replace(
         config, lbfgs=dataclasses.replace(config.lbfgs,
                                           maxiter=refine_maxiter))
@@ -125,9 +131,10 @@ def hybrid_calibrate_batch_mixed(surrogate: TrainedSurrogate, spots,
     _, win = _winner(out32.per_start_loss)
     spots, strikes, maturities, is_call, mkt = _inputs(
         spots, strikes, maturities, is_call, market_prices, f64, dev)
-    res, params_vec, model = _polish_lanes_fused(
-        spots, rate, strikes, maturities, is_call, mkt, out32.x.to(f64), None,
-        _polish_pricer_config(config), polish)
+    with tracing.span("polish.winner"):
+        res, params_vec, model = _polish_lanes_fused(
+            spots, rate, strikes, maturities, is_call, mkt, out32.x.to(f64),
+            None, _polish_pricer_config(config), polish)
     per_start_x = out32.per_start_x.to(f64)
     per_start_x[torch.arange(b, device=dev), win] = res.x
     return BatchCalibration(

@@ -76,7 +76,8 @@ from ..ops.cos_kernel import price_surfaces
 from ..ops.loss_kernel import (EXP_MASK, FELLER_IDX, TANH_MASK,
                                polish_assembly_plain)
 from ..utils.config import CalibrationConfig, LMConfig
-from ..utils.timing import CudaTimer, device_entries, profile_complete
+from ..utils.timing import (CudaTimer, device_entries, device_ops, device_us,
+                            profile_complete)
 
 # cost_target > 0 so that tconv can fire; maxiter near the drawn counters.
 TRIP_CONFIG = LMConfig(maxiter=20, cost_target=1e-10)
@@ -508,12 +509,9 @@ def steady_trip_ms(residual_fn, jac_fn, x0: torch.Tensor,
                                   lambda p: device_entries(p)[1] > 0,
                                   device=x0.device)
     busy, records = device_entries(prof)
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     name = lambda key: re.sub(r"\(anonymous namespace\)::|void |"
                               r"at::native::", "", key).split("(")[0][:48]
-    kernels = {name(e.key): dev_us(e) / 20e3 for e in prof.key_averages()
-               if dev_us(e) > 0 and "CUDA" in str(e.device_type)}
+    kernels = {name(e.key): device_us(e) / 20e3 for e in device_ops(prof)}
     return {"lanes": x0.shape[0], "trip_ms": timer.ms / trips,
             "host_issue_ms": host, "device_busy_ms": busy / 20,
             "records": records / 20,

@@ -15,9 +15,9 @@ trials. On ``cuda`` the trials are timed with CUDA events; on the CPU
 (``device="cpu"``, for tests) by the host clock. The first call is timed
 apart as ``build_s``: it includes the kernels' nvcc build or the load of
 an already built library, where JAX's ``compile_s`` had the XLA compile.
-``profile_trace`` is a ``torch.profiler`` window, ``profile_complete``
-retakes one that lost its device records, and ``wall_timer`` is a
-host-clock bracket.
+``profile_trace`` is a ``torch.profiler`` window, and
+``profile_complete`` retakes one that lost its device records;
+``device_ops`` and ``device_entries`` read a window's device work.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ import time
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
+
+from . import tracing
 
 
 def synchronize(device) -> None:
@@ -122,15 +124,31 @@ def time_jitted(fn: Callable, *args, repeats: int = 3, chain: int = 4,
     return Timing(build_s=build_s, steady_s=runs[len(runs) // 2], runs=runs)
 
 
+def device_us(entry) -> float:
+    """An entry of ``key_averages()``: its own device microseconds."""
+    return getattr(entry, "self_device_time_total",
+                   getattr(entry, "self_cuda_time_total", 0.0))
+
+
+def device_ops(prof) -> list:
+    """The entries of a finished ``torch.profiler.profile``'s
+    ``key_averages()`` that are device work (kernels, copies, sets). User
+    annotations are left out: a ``record_function`` (the port's spans in
+    ``utils/tracing.py``, ``Optimizer.step#Adam.step``) also has a device
+    entry, which spans its kernels and the gaps between. A kernel's name
+    may hold a ``#`` (``{lambda(float, float)#1}``)."""
+    return [e for e in prof.key_averages()
+            if device_us(e) > 0 and "CUDA" in str(e.device_type)
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in tracing.SPAN_NAMES]
+
+
 def device_entries(prof):
-    """(milliseconds, count) of the device work (kernels, copies) in a
-    finished ``torch.profiler.profile``: the sum of its device-side
-    entries' own time, and how many there were."""
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    on_dev = [e for e in prof.key_averages()
-              if dev_us(e) > 0 and "CUDA" in str(e.device_type)]
-    return (sum(dev_us(e) for e in on_dev) / 1e3,
+    """(milliseconds, count) of the device work (``device_ops``) in a
+    finished ``torch.profiler.profile``: the sum of its entries' own
+    time, and how many there were."""
+    on_dev = device_ops(prof)
+    return (sum(device_us(e) for e in on_dev) / 1e3,
             sum(e.count for e in on_dev))
 
 
@@ -165,17 +183,3 @@ def profile_complete(fn: Callable, complete: Callable, device="cuda",
             break
     return prof, out, n
 
-
-@contextlib.contextmanager
-def wall_timer():
-    """Host wall-clock bracket; read ``.elapsed_s`` after the block. The
-    JAX package's ``wall_timer``, kept as its twin; nothing in the port
-    calls it."""
-    class _T:
-        elapsed_s = 0.0
-    t = _T()
-    t0 = time.perf_counter()
-    try:
-        yield t
-    finally:
-        t.elapsed_s = time.perf_counter() - t0

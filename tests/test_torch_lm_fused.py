@@ -13,6 +13,8 @@ from their outputs, the host assembly of ``PolishObjective``) and
     ``lm_update_plain`` over 22 trips, bootstrap trip and done lanes
     included, in bits; the engine's routes (fused and unfused) end in the
     same bits;
+  * padding lanes (``live``) start done and leave the real lanes' bits
+    and live counts as they are without them;
   * ``_polish_lanes_fused`` on the CPU (the fused plain trip) against the
     JAX package's ``_polish_lanes_fused`` (its Pallas Jacobian in interpret
     mode), from the same lanes and starts: model prices within the
@@ -230,6 +232,30 @@ def test_engine_routes_end_in_the_same_bits(lanes, maxiter, monkeypatch):
     for name, a, b in zip(lm.LMResult._fields, fused, host):
         assert _same_bits(a, b), name
     assert int(fused.n_evals.max()) == maxiter + 1
+
+
+def test_padding_starts_done(lanes, monkeypatch):
+    """Lanes from ``live`` on (a wave's padding: copies of its first lane)
+    start done: they keep x0 and count no iteration, each trip's live
+    count leaves them out, and the real lanes end in the bits, after the
+    same live counts, of a run without the padding."""
+    keep, pad = [0, 1, 2, 3], [0, 1, 2, 3, 0, 0, 0]
+    x0 = torch.tensor(lanes["x"][pad]) * 1.02
+    cfg = dataclasses.replace(tcal.POLISH_LM, maxiter=6)
+    reads = []
+    read_live = lm.read_live
+    monkeypatch.setattr(lm, "read_live",
+                        lambda st: reads.append(read_live(st)) or reads[-1])
+    obj = _objective(lanes, pad)
+    padded = lm.lm_minimize_batched(obj, x0, cfg, jac_fn=obj.jac, live=4)
+    padded_reads, reads[:] = reads[:], []
+    obj = _objective(lanes, keep)
+    alone = lm.lm_minimize_batched(obj, x0[:4], cfg, jac_fn=obj.jac)
+    assert padded_reads == reads and reads[0] == 4
+    for name, a, b in zip(lm.LMResult._fields, padded, alone):
+        assert _same_bits(a[:4], b), name
+    assert _same_bits(padded.x[4:], x0[4:])
+    assert not padded.n_iters[4:].any() and not padded.converged[4:].any()
 
 
 def test_polish_matches_jax(surface15):
