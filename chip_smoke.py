@@ -17,7 +17,11 @@ Phases:
      6144 lanes, N = 64, plus the sentinel lane; then K2 and K3 at edge
      shapes (lanes 1, 15, 1537 x n_opt 7, 15, 17; mixed calls and puts,
      all-distinct maturities, rows whose range widening binds), a guard
-     band one lane past the outputs, and two launches' bits;
+     band one lane past the outputs, and two launches' bits; K2, K3 and
+     K2<double> bound with done flags (lanes 1, 15, 1537; none, two in
+     five, all done): live lanes' rows in bits against the one-shot
+     launch, done lanes' rows left as planted; K2 alone with 0-99.9 % of
+     3000 lanes done at N = 64 and of 2000 at N = 128;
   5. K3: residual Jacobian vs jacfwd of the plain residuals; K2 and K3 also
      at L = 12 / q = 0.02 (together, q alone, L alone);
  5b. K4/K5, the L-BFGS trip (csrc/lbfgs_trip.cu): one trip from seeded
@@ -29,9 +33,10 @@ Phases:
      1, 15, 1536, 1537 with 15 or 17 options, float and double; invalid
      price rows, NaN/inf prices and gradient sums, each Feller factor on
      and off, bootstrap and done lanes); a whole float32 search (1536
-     lanes, maxeval 160) on fused K4, K2, fused K5 against the fused plain
-     pair in bits; the unfused engine at float64 on K2<double> (1536
-     lanes, maxeval = 30) kernels against the plain pair; a corrupt
+     lanes, maxeval 160) on fused K4, K2 (skipping done lanes), fused K5
+     against the fused plain pair, every field of the result in bits; the
+     unfused engine at float64 on K2<double> (1536 lanes, maxeval = 30)
+     kernels against the plain pair; a corrupt
      history index raises naming its lane; each unfused kernel timed
      against the plain version and its bound (ops/opcount.py);
  5c. K6/K7, the LM trip (csrc/lm_trip.cu): one trip from seeded random
@@ -45,8 +50,9 @@ Phases:
      each Feller factor above, on and below its bound at both precisions,
      NaN/inf Jacobian rows, a negative chain-rule factor); the polish's LM
      (512 surfaces x 3 starts, stage A's maxiter 10) on the unfused trip
-     around the host assembly and on the fused trip, kernels against the
-     plain pair, in bits; the whole polish (POLISH_LM) on the fused trip
+     around the host assembly and on the fused trip (K3 skipping done
+     lanes), kernels against the plain pair, in bits (on the fused trip
+     every field of the result); the whole polish (POLISH_LM) on the fused trip
      against the host-assembled one: 0 lanes apart, the same trips;
   6. the slice, bench twin: tools/bench.py's 6 problem sets x 5 surfaces
      (bench.py's recipe, truths from the in-process host pricer), each
@@ -742,7 +748,7 @@ def main():
         ins = [params, spots, strikes, mats, call, mkt,
                loss_kernel.maturity_groups(mats)]
         err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
-            *(t.contiguous().data_ptr() for t in ins), price.data_ptr(),
+            *(t.contiguous().data_ptr() for t in ins), None, price.data_ptr(),
             grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n, n_terms, mode_no,
             torch.cuda.current_stream().cuda_stream)
         wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
@@ -806,6 +812,71 @@ def main():
     record["cos_price_f64"] = {"max_abs_err": k1_err[f64]}
     record["cos_vg_loss"] = {"max_abs_err": k2_err}
     record["cos_vg_jac"] = {"max_abs_err": k3_err}
+
+    def alone_ms(kernel, fn):
+        """The kernel alone: torch.profiler's device time over 20
+        launches of the kernel whose name holds ``kernel`` (the events time
+        the wrappers' host issue when that is slower than the kernel); a
+        window that recorded none of them is taken again."""
+        def launches():
+            for _ in range(20):
+                fn()
+        mine = lambda p: [e for e in p.key_averages() if kernel in e.key
+                          and "CUDA" in str(e.device_type)]
+        torch.cuda.synchronize()
+        prof, _, _ = profile_complete(launches, lambda p: bool(mine(p)),
+                                      device=dev)
+        return sum(device_us(e) for e in mine(prof)) / 20 / 1e3
+
+    # K2/K3 bound with done flags, as the trips bind them (a done lane's
+    # block exits at once): live lanes' rows against the one-shot launch
+    # in bits, done lanes' rows left as planted, the flags read at each
+    # launch; none, two lanes in five and all lanes done.
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    n_cases = 0
+    for mode, dt, n_terms in (("loss", f32, 64), ("jac", f32, 64),
+                              ("loss", f64, 128)):
+        for n_lanes in (1, 15, 1537):
+            prob, _ = edge_problem(n_lanes, 15, 100 + n_lanes + 15, dt)
+            lane = torch.arange(n_lanes, device=dev)
+            for done in (lane < 0, lane % 5 >= 3, lane >= 0):
+                rep = trip_check.check_masked_rows(
+                    mode, transform(prob[5]), *prob[:5], n_terms, done)
+                n_cases += 1
+                check(rep["ok"], f"K2/K3 {mode} {dt} with done flags: "
+                      f"{json.dumps(rep)}")
+    print(f"[4] K2 / [5] K3 / K2<double> bound with done flags, lanes 1, "
+          f"15, 1537 x none, 2 in 5, all done: {n_cases} cases, live rows "
+          f"in bits, done rows untouched, flags re-read")
+    # K2 with a share of its lanes done (spread at random), the kernel
+    # alone: 3000 lanes at N = 64 (the pure cells' search) and 2000 at
+    # N = 128 (the hybrid's refine). Above about one wave of resident
+    # blocks its time follows the live lanes; below, one block's latency.
+    masked = {}
+    for n_lanes, n_terms, shares in ((3000, 64, (0.0, 0.4, 0.8, 0.999)),
+                                     (2000, 128, (0.0, 0.78, 0.999))):
+        prob = lanes_problem(n_lanes, 31 + n_terms)
+        vg = loss_kernel.make_batch_value_and_grad(
+            *prob[:5], 0.03,
+            CalibrationConfig(pricer=PricerConfig(n_terms=n_terms)))
+        params = transform(prob[5]).contiguous()
+        done = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+        k2 = vg.bind_rows(params, torch.empty_like(vg.mkt),
+                          torch.empty_like(params), done)
+        order = torch.randperm(n_lanes, generator=torch.Generator()
+                               .manual_seed(n_lanes)).to(dev)
+        for share in shares:
+            done.zero_()
+            done[order[:round(share * n_lanes)]] = True
+            key = f"L{n_lanes}_N{n_terms}_done{share}"
+            masked[key] = {"live": n_lanes - int(done.sum()),
+                           "events_ms": cuda_time_ms(k2),
+                           "alone_ms": alone_ms("cos_vg_kernel", k2)}
+            print(f"[4] K2 L={n_lanes} N={n_terms}, {share:.1%} done "
+                  f"({masked[key]['live']} live): kernel alone "
+                  f"{masked[key]['alone_ms']:.4f} ms, events "
+                  f"{masked[key]['events_ms']:.4f} ms")
+    record["cos_vg_loss"]["masked_ms"] = masked
 
     def kernel_vs_plain(label, name, kern, plain, work, dt, keep):
         """plain, kernel, kernel, plain: compare within one call; the bound
@@ -903,10 +974,11 @@ def main():
     search_obj, search_x0 = trip_check.search_lanes(512, 77, dev)
     eng = trip_check.check_engine(search_obj, search_x0,
                                   LBFGSConfig(maxeval=160))
-    print(f"[5b] fused search float32, 1536 lanes, maxeval=160, kernels vs "
-          f"fused plain pair: {json.dumps(eng)} (x and f in bits)")
+    print(f"[5b] fused search float32, 1536 lanes, maxeval=160, kernels "
+          f"(K2 skipping done lanes) vs fused plain pair: {json.dumps(eng)} "
+          f"(every field in bits)")
     check(eng["n_evals_equal"] and eng["n_iters_equal"]
-          and eng["x_bits_differ"] == 0 and eng["f_bits_differ"] == 0,
+          and not any(eng["bits_differ"].values()),
           "the fused search departs from the fused plain pair")
     # The unfused engine at float64 on K2<double> and its host assembly
     # (called as a plain function): kernels against the plain pair on the
@@ -944,21 +1016,6 @@ def main():
     # bytes are those of the first launch.
     never = LBFGSConfig(maxiter=1 << 30, ftol=-float("inf"), gtol=-1.0,
                         max_restarts=1 << 30)
-
-    def alone_ms(kernel, fn):
-        """The kernel alone: torch.profiler's device time over 20
-        launches of the kernel whose name holds ``kernel`` (the events time
-        the wrappers' host issue when that is slower than the kernel); a
-        window that recorded none of them is taken again."""
-        def launches():
-            for _ in range(20):
-                fn()
-        mine = lambda p: [e for e in p.key_averages() if kernel in e.key
-                          and "CUDA" in str(e.device_type)]
-        torch.cuda.synchronize()
-        prof, _, _ = profile_complete(launches, lambda p: bool(mine(p)),
-                                      device=dev)
-        return sum(device_us(e) for e in mine(prof)) / 20 / 1e3
 
     for n_lanes, dt, keep in ((1536, f32, True), (15, f64, True),
                               (1536, f64, False), (15, f32, False)):
@@ -1058,7 +1115,8 @@ def main():
               f"surfaces x 3 starts, maxiter 10, kernels vs plain pair: "
               f"{json.dumps(eng)} (x in bits)")
         check(eng["n_evals_equal"] and eng["n_iters_equal"]
-              and eng["converged_equal"] and eng["x_bits_differ"] == 0,
+              and eng["converged_equal"] and eng["x_bits_differ"] == 0
+              and (label != "fused" or not any(eng["bits_differ"].values())),
               f"the LM engine on K6/K7 ({label}) departs from the plain "
               "pair")
     route = lm_trip_check.route_check(lm_obj, lm_x0, calibrator.POLISH_LM)

@@ -255,8 +255,10 @@ class PolishObjective:
         """The fused LM trip on this objective, bound once for the engine's
         state ``st`` and ``status`` (``levenberg_marquardt._bind_trip``):
         on CUDA tensors (unless ``plain``) fused K6, K1<double> and K3 into
-        bound buffers, fused K7; else ``lm_open_fused_plain``, ``prices``,
-        ``rows`` and ``lm_update_fused_plain`` in place. The first trip is
+        bound buffers (K3 skipping the lanes that ``st.done`` flags as the
+        trip starts: finished lanes, a wave's padding), fused K7; else
+        ``lm_open_fused_plain``, ``prices``, ``rows`` and
+        ``lm_update_fused_plain`` in place. The first trip is
         the bootstrap (K1 at x0). None for no lanes, or where the fused
         kernels do not take the rows (n + 2 > ``MAX_FUSED_ROWS``): the
         engine then takes its unfused trip around ``__call__`` and
@@ -278,7 +280,8 @@ class PolishObjective:
             k3 = bind_rows_jacobian(
                 trial.params32, self.spots32, self.rate, self.strikes32,
                 self.mats32, self.call, self.mkt32, n_terms, L, q,
-                self.groups32, torch.empty_like(self.mkt32), trial.jac)
+                self.groups32, torch.empty_like(self.mkt32), trial.jac,
+                st.done)
 
             def trip():
                 kernels.open(boot.pop() if boot else False)

@@ -50,6 +50,17 @@
 //     feature this design uses.
 //   * __launch_bounds__ keeps the float kernel at 16 resident warps an SM
 //     (at most 128 registers a thread).
+//   * Done lanes. Inside a bound trip (the fused L-BFGS trip K4, K2, K5;
+//     the fused LM trip K6, K1<double>, K3, K7) the kernel takes the
+//     state's done flags, done [L]: K5 or K7 of the previous trip wrote
+//     them on the same stream, and K4 and K6 leave them as they are. The
+//     block of a done lane returns before its first shared-memory write
+//     and its first __syncthreads (the test is uniform across the block),
+//     so its price and gradient rows keep what they held: nothing reads
+//     them, since K5 and K7 of the same trip touch only lanes that are not
+//     done. A lane that is not done runs the same code in the same order,
+//     so its bits are those of the unmasked launch. done = nullptr (the
+//     one-shot wrappers, the unfused trips) prices every lane.
 // Branches select on the primal (cos_math.cuh), and there is no
 // --use_fast_math: the double kernel needs the accurate libm.
 #include "cos_vg_terms.cuh"
@@ -102,14 +113,16 @@ cos_vg_kernel(const T* __restrict__ params, const T* __restrict__ spots,
               const T* __restrict__ strikes, const T* __restrict__ mats,
               const unsigned char* __restrict__ is_call,
               const T* __restrict__ mkt, const int* __restrict__ groups,
+              const unsigned char* __restrict__ done,
               T* __restrict__ price_out, T* __restrict__ grad_out, T rate,
               T q, T L, int n_opt, int n_terms, int mode) {
+  const int lane = blockIdx.x;
+  if (done != nullptr && done[lane]) return;   // its rows are never read
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(n_opt, n_terms);
   T* st = reinterpret_cast<T*>(smem);
   int* si = reinterpret_cast<int*>(st + lay.n_t);
   T* s_item = st + lay.item;
-  const int lane = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   const int row0 = lane * n_opt;
   const T spot = spots[lane];
@@ -242,9 +255,9 @@ cos_vg_kernel(const T* __restrict__ params, const T* __restrict__ spots,
 template <typename T>
 int launch(const void* params, const void* spots, const void* strikes,
            const void* mats, const void* is_call, const void* mkt,
-           const void* groups, void* price_out, void* grad_out, double rate,
-           double q, double L, int n_lanes, int n_opt, int n_terms, int mode,
-           void* stream) {
+           const void* groups, const void* done, void* price_out,
+           void* grad_out, double rate, double q, double L, int n_lanes,
+           int n_opt, int n_terms, int mode, void* stream) {
   if (n_lanes <= 0 || n_opt <= 0 || n_terms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = Layout(n_opt, n_terms).bytes<T>();
@@ -259,7 +272,8 @@ int launch(const void* params, const void* spots, const void* strikes,
       static_cast<const T*>(params), static_cast<const T*>(spots),
       static_cast<const T*>(strikes), static_cast<const T*>(mats),
       static_cast<const unsigned char*>(is_call), static_cast<const T*>(mkt),
-      static_cast<const int*>(groups), static_cast<T*>(price_out),
+      static_cast<const int*>(groups),
+      static_cast<const unsigned char*>(done), static_cast<T*>(price_out),
       static_cast<T*>(grad_out), static_cast<T>(rate), static_cast<T>(q),
       static_cast<T>(L), n_opt, n_terms, mode);
   return static_cast<int>(cudaGetLastError());
@@ -270,28 +284,29 @@ int launch(const void* params, const void* spots, const void* strikes,
 // params [L,13], spots [L], strikes/mats/is_call/mkt/price_out [L*n_opt],
 // groups [L*n_opt] int32 labels (rows of a lane with equal labels must have
 // equal maturities; ops/loss_kernel.py::maturity_groups), all row-major;
-// grad_out [L, 13] (mode 0, the lane's row sum: K2) or [L*n_opt, 13]
-// (mode 1, every row: K3). Returns the launch's cudaError_t.
+// done [L] bytes or nullptr: a lane whose byte is set is skipped, its rows
+// left as they are; grad_out [L, 13] (mode 0, the lane's row sum: K2) or
+// [L*n_opt, 13] (mode 1, every row: K3). Returns the launch's cudaError_t.
 extern "C" int cos_vg_f32(const void* params, const void* spots,
                           const void* strikes, const void* mats,
                           const void* is_call, const void* mkt,
-                          const void* groups, void* price_out,
-                          void* grad_out, double rate, double q, double L,
-                          int n_lanes, int n_opt, int n_terms, int mode,
-                          void* stream) {
+                          const void* groups, const void* done,
+                          void* price_out, void* grad_out, double rate,
+                          double q, double L, int n_lanes, int n_opt,
+                          int n_terms, int mode, void* stream) {
   return launch<float>(params, spots, strikes, mats, is_call, mkt, groups,
-                       price_out, grad_out, rate, q, L, n_lanes, n_opt,
+                       done, price_out, grad_out, rate, q, L, n_lanes, n_opt,
                        n_terms, mode, stream);
 }
 
 extern "C" int cos_vg_f64(const void* params, const void* spots,
                           const void* strikes, const void* mats,
                           const void* is_call, const void* mkt,
-                          const void* groups, void* price_out,
-                          void* grad_out, double rate, double q, double L,
-                          int n_lanes, int n_opt, int n_terms, int mode,
-                          void* stream) {
+                          const void* groups, const void* done,
+                          void* price_out, void* grad_out, double rate,
+                          double q, double L, int n_lanes, int n_opt,
+                          int n_terms, int mode, void* stream) {
   return launch<double>(params, spots, strikes, mats, is_call, mkt, groups,
-                        price_out, grad_out, rate, q, L, n_lanes, n_opt,
+                        done, price_out, grad_out, rate, q, L, n_lanes, n_opt,
                         n_terms, mode, stream);
 }

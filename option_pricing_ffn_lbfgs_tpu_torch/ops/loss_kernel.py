@@ -33,6 +33,12 @@ L-BFGS trip for ``ops/lbfgs_batched.py::lbfgs_minimize_batched``
 assembly in its order, so on the card the fused trip gives the bits of K4,
 K2, this assembly and K5. Its plain versions are
 ``lbfgs_open_fused_plain`` and ``lbfgs_update_fused_plain``.
+
+A bound K2 or K3 takes the trip's done flags (the engine state's ``done``,
+which K5 or K7 of the previous trip wrote): a done lane's block exits at
+once and its rows keep what they held, which nothing reads, since K5 and
+K7 touch only lanes that are not done. The one-shot wrappers price every
+lane.
 """
 from __future__ import annotations
 
@@ -58,9 +64,9 @@ _ENTRIES = {
     ("jac", torch.float32): ("cos_vg_f32", 1, "cos_vg_jac"),
     ("loss", torch.float64): ("cos_vg_f64", 0, "cos_vg_loss_f64"),
 }
-# params, spots, strikes, mats, is_call, mkt, groups, price_out, grad_out;
-# rate, q, L; n_lanes, n_opt, n_terms, mode; stream
-ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_double] * 3
+# params, spots, strikes, mats, is_call, mkt, groups, done (or NULL),
+# price_out, grad_out; rate, q, L; n_lanes, n_opt, n_terms, mode; stream
+ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_double] * 3
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # Each variance factor's (sigma, kappa, theta) in the parameter vector.
 FELLER_IDX = tuple(tuple(DHParams._fields.index(f"{name}{i}")
@@ -117,14 +123,27 @@ def _inputs(mode, params, spots, strikes, maturities, is_call, mkt, groups):
     return symbol, mode_no, count, ins
 
 
-def _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms):
+def _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms,
+          done=None):
     """The C entry and its argument tuple for a launch into ``price`` and
-    ``grad``."""
+    ``grad``, skipping the lanes that ``done`` flags (None: none)."""
     lanes, n_opt = price.shape
     return kernel_build.entry("cos_vg", symbol, ARGTYPES), (
-        *(t.data_ptr() for t in ins), price.data_ptr(), grad.data_ptr(),
-        float(rate), float(q), float(L), lanes, n_opt, n_terms, mode_no,
-        torch.cuda.current_stream(price.device).cuda_stream)
+        *(t.data_ptr() for t in ins),
+        None if done is None else done.data_ptr(), price.data_ptr(),
+        grad.data_ptr(), float(rate), float(q), float(L), lanes, n_opt,
+        n_terms, mode_no, torch.cuda.current_stream(price.device).cuda_stream)
+
+
+def _check_done(done, lanes: int, device):
+    """Raises unless ``done`` is None or a contiguous bool ``[lanes]`` on
+    ``device``: the done flags a bound K2/K3 reads each launch."""
+    if done is not None and (
+            done.dtype != torch.bool or done.shape != (lanes,)
+            or done.device != device or not done.is_contiguous()):
+        raise ValueError(f"done: expected contiguous torch.bool ({lanes},) "
+                         f"on {device}, got {done.dtype} "
+                         f"{tuple(done.shape)} on {done.device}")
 
 
 def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
@@ -148,12 +167,14 @@ def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
 
 def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
                              is_call, mkt, n_terms: int, L: float, q: float,
-                             groups, price, grad):
+                             groups, price, grad, done=None):
     """K2 bound once, for the fused L-BFGS trip: a launcher with no
     arguments that prices ``params [L, 13]`` (rewritten in place between
-    launches) into the preallocated ``price [L, n]`` and ``grad [L, 13]``.
-    Every check of ``rows_value_and_grad`` runs here, once; CUDA tensors
-    only, at least one row."""
+    launches) into the preallocated ``price [L, n]`` and ``grad [L, 13]``,
+    skipping the lanes that ``done`` (bool ``[L]``, rewritten in place
+    between launches; None: no lane) flags, whose rows it leaves as they
+    are. Every check of ``rows_value_and_grad`` runs here, once; CUDA
+    tensors only, at least one row."""
     symbol, mode_no, count, ins = _inputs("loss", params, spots, strikes,
                                           maturities, is_call, mkt, groups)
     lanes, n_opt = strikes.shape
@@ -167,9 +188,11 @@ def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
         raise ValueError("K2 needs at least one option a lane")
     if not params.is_contiguous():
         raise ValueError("params must be contiguous: K2 reads it in place")
-    fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms)
+    _check_done(done, lanes, params.device)
+    fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms,
+                     done)
 
-    def launch(_keep=(ins, price, grad)):
+    def launch(_keep=(ins, price, grad, done)):
         kernel_build.check(fn(*args), count)
         LAUNCHES[count] += 1
     return launch
@@ -177,12 +200,13 @@ def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
 
 def bind_rows_jacobian(params, spots, rate, strikes, maturities, is_call,
                        mkt, n_terms: int, L: float, q: float, groups, price,
-                       jac):
+                       jac, done=None):
     """K3 bound once, for the fused LM trip: a launcher with no arguments
     that differentiates ``params [L, 13]`` (float32, rewritten in place
     between launches) into the preallocated ``price [L, n]`` and ``jac
-    [L, n, 13]``. Every check of ``rows_jacobian`` runs here, once; CUDA
-    tensors only, at least one row."""
+    [L, n, 13]``, skipping the lanes that ``done`` flags, as K2's binding
+    does. Every check of ``rows_jacobian`` runs here, once; CUDA tensors
+    only, at least one row."""
     symbol, mode_no, count, ins = _inputs("jac", params, spots, strikes,
                                           maturities, is_call, mkt, groups)
     lanes, n_opt = strikes.shape
@@ -196,9 +220,11 @@ def bind_rows_jacobian(params, spots, rate, strikes, maturities, is_call,
         raise ValueError("K3 needs at least one option a lane")
     if not params.is_contiguous():
         raise ValueError("params must be contiguous: K3 reads it in place")
-    fn, args = _args(symbol, mode_no, ins, price, jac, rate, q, L, n_terms)
+    _check_done(done, lanes, params.device)
+    fn, args = _args(symbol, mode_no, ins, price, jac, rate, q, L, n_terms,
+                     done)
 
-    def launch(_keep=(ins, price, jac)):
+    def launch(_keep=(ins, price, jac, done)):
         kernel_build.check(fn(*args), count)
         LAUNCHES[count] += 1
     return launch
@@ -354,11 +380,11 @@ class BatchValueAndGrad:
         problem, groups = self._problem()
         return rows_value_and_grad(params, *problem, groups)
 
-    def bind_rows(self, params, price, grad):
+    def bind_rows(self, params, price, grad, done=None):
         """``bind_rows_value_and_grad`` on this problem."""
         problem, groups = self._problem()
         return bind_rows_value_and_grad(params, *problem, groups, price,
-                                        grad)
+                                        grad, done)
 
     def __call__(self, x):
         params = transform(x.to(self.dtype))
@@ -385,7 +411,8 @@ class BatchValueAndGrad:
     def bind_trip(self, st, config: LBFGSConfig, status, plain: bool):
         """The fused L-BFGS trip on this objective, bound once for the
         engine's state ``st`` and ``status`` (``lbfgs_batched._bind_trip``):
-        on CUDA tensors (unless ``plain``) fused K4, K2 and fused K5, else
+        on CUDA tensors (unless ``plain``) fused K4, K2 (skipping the lanes
+        that ``st.done`` flags as the trip starts) and fused K5, else
         ``lbfgs_open_fused_plain``, ``rows`` and ``lbfgs_update_fused_plain``
         in place. None where the fused kernels do not take this objective
         (``lb.MAX_ROWS`` rows a lane or more): the engine then takes its
@@ -399,7 +426,8 @@ class BatchValueAndGrad:
         if st.x.device.type == "cuda" and not plain:
             kernels = lb.TripKernels(st, config, status,
                                      torch.empty_like(st.x), trial)
-            k2 = self.bind_rows(trial.params_try, trial.price, trial.g_price)
+            k2 = self.bind_rows(trial.params_try, trial.price, trial.g_price,
+                                st.done)
 
             def trip():
                 kernels.open()

@@ -359,11 +359,14 @@ def check_trip_fused(n_lanes: int, device, seed: int,
 
 
 def _agreement(a, b) -> dict:
-    """Counts equal on every lane, the entries of x whose bits differ, and
-    the largest relative difference of x and f, of two LMResults."""
+    """Counts equal on every lane, the entries of x whose bits differ, the
+    largest relative difference of x and f, and per field the entries
+    whose bits differ, of two LMResults."""
     rel = lambda u, v: float(((u - v).abs()
                               / v.abs().clamp(min=1e-300)).max())
     return {
+        "bits_differ": {name: int(_bits_differ(u, v).sum())
+                        for name, u, v in zip(lm.LMResult._fields, a, b)},
         "n_evals_equal": bool(torch.equal(a.n_evals, b.n_evals)),
         "n_iters_equal": bool(torch.equal(a.n_iters, b.n_iters)),
         "converged_equal": bool(torch.equal(a.converged, b.converged)),

@@ -48,8 +48,13 @@ engine's binding (``TripKernels``) and holds them to
 ``loss_kernel.lbfgs_open_fused_plain`` (state, x_try and params_try) and
 ``lbfgs_update_fused_plain`` from the plain-opened state, in bits.
 ``check_engine`` on a ``search_lanes`` objective runs the fused trip
-(K2 both ways). ``search_trip_ms`` times a search trip on the card
+(K2 both ways: on the card the bound K2 skips done lanes, the plain one
+prices them). ``search_trip_ms`` times a search trip on the card
 against K2 alone.
+
+``check_masked_rows(mode, params, ..., done)`` holds K2 or K3 bound with
+the done flags ``done`` to the one-shot launch, which prices every lane:
+live lanes' rows in bits, done lanes' rows left as planted.
 
 Measurement only: no calibration path imports this module.
 """
@@ -245,11 +250,14 @@ def check_engine(vg_fn, x0: torch.Tensor, config: LBFGSConfig) -> dict:
     """The engine to its end with the kernels and with the plain pair
     (for a ``BatchValueAndGrad``, the fused trip both ways): equal
     evaluation and iteration counts on every lane, the largest relative
-    difference of x and the entries of x and f whose bits differ."""
+    difference of x, the entries of x and f whose bits differ, and per
+    field of the results the entries whose bits differ."""
     kern = lb._run(vg_fn, x0, config)
     plain = lb._run(vg_fn, x0, config, plain=True)
     scale = plain.x.abs().clamp(min=1e-300)
     return {
+        "bits_differ": {name: int(_bits_differ(a, b).sum()) for name, a, b
+                        in zip(lb.LBFGSResult._fields, kern, plain)},
         "x_bits_differ": int(_bits_differ(kern.x, plain.x).sum()),
         "f_bits_differ": int(_bits_differ(kern.f, plain.f).sum()),
         "n_evals_equal": bool(torch.equal(kern.n_evals, plain.n_evals)),
@@ -261,6 +269,43 @@ def check_engine(vg_fn, x0: torch.Tensor, config: LBFGSConfig) -> dict:
                         / plain.f.abs().clamp(min=1e-300)).max()),
         "n_evals_max": int(plain.n_evals.max()),
     }
+
+
+def check_masked_rows(mode: str, params, spots, strikes, mats, call, mkt,
+                      n_terms: int, done) -> dict:
+    """On the card: K2 (``mode`` "loss") or K3 ("jac") bound with the done
+    flags ``done [L]`` (``bind_rows_value_and_grad`` /
+    ``bind_rows_jacobian``) into outputs planted with a guard pattern,
+    against the one-shot launch, which prices every lane. The entries of
+    the live lanes' rows whose bits differ, the entries of the done lanes'
+    rows that lost their guard, and, after the flags are cleared in place
+    and the binding launched again, the entries of any row whose bits
+    differ (the binding reads the flags at each launch)."""
+    dt, dev = params.dtype, params.device
+    wrap, bind = ((lk.rows_value_and_grad, lk.bind_rows_value_and_grad)
+                  if mode == "loss" else
+                  (lk.rows_jacobian, lk.bind_rows_jacobian))
+    problem = (spots, 0.03, strikes, mats, call, mkt, n_terms, 10.0, 0.0,
+               lk.maturity_groups(mats))
+    want = wrap(params, *problem)
+    guard = [-12345.0 - torch.arange(t.numel(), dtype=dt,
+                                     device=dev).reshape(t.shape)
+             for t in want]
+    out = [g.clone() for g in guard]
+    flags = done.clone()
+    launch = bind(params, *problem, *out, flags)
+    launch()
+    differ = lambda pairs, rows: sum(int(_bits_differ(a[rows], b[rows]).sum())
+                                     for a, b in pairs)
+    rep = {"lanes": int(done.numel()), "done": int(done.sum()),
+           "live_bits_differ": differ(zip(out, want), ~done),
+           "guard_entries_written": differ(zip(out, guard), done)}
+    flags.zero_()
+    launch()
+    rep["cleared_bits_differ"] = differ(zip(out, want), slice(None))
+    rep["ok"] = not (rep["live_bits_differ"] or rep["guard_entries_written"]
+                     or rep["cleared_bits_differ"])
+    return rep
 
 
 # ------------------------------------------------------- the fused trip --

@@ -430,7 +430,7 @@ def test_guard_band_and_identical_bits(cuda, mode, dt, n_terms):
     ins = [params, spots, strikes, mats, call, mkt,
            loss_kernel.maturity_groups(mats)]
     err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
-        *(t.contiguous().data_ptr() for t in ins), price.data_ptr(),
+        *(t.contiguous().data_ptr() for t in ins), None, price.data_ptr(),
         grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n, n_terms, mode_no,
         torch.cuda.current_stream().cuda_stream)
     wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
@@ -443,6 +443,55 @@ def test_guard_band_and_identical_bits(cuda, mode, dt, n_terms):
     assert bool((grad[lanes:] == -12345.0).all())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(price[:lanes], a[0]) and torch.equal(grad[:lanes], a[1])
+
+
+# kernel -> (mode, dtype, N) of a bound K2/K3 launch that skips done lanes
+MASKED = {"K2": ("loss", F32, 64), "K3": ("jac", F32, 64),
+          "K2<double>": ("loss", F64, 128)}
+
+
+@pytest.mark.parametrize("share", ["none", "two_in_five", "all"])
+@pytest.mark.parametrize("n_lanes", [1, 15, 1537])
+@pytest.mark.parametrize("kernel", list(MASKED))
+def test_bound_k2_k3_skip_done_lanes(cuda, kernel, n_lanes, share):
+    """K2, K3 and K2<double> bound with done flags (none, lanes 3 and 4 of
+    every 5, all): the live lanes' rows equal the one-shot launch's in
+    bits, the done lanes' rows keep their planted guard, and with the
+    flags cleared in place the next launch prices every lane
+    (tools/trip_check.py::check_masked_rows)."""
+    from option_pricing_ffn_lbfgs_tpu_torch.tools import trip_check
+    mode, dt, n_terms = MASKED[kernel]
+    spots, strikes, mats, call, mkt, x = _edge_problem(
+        n_lanes, 15, 100 + n_lanes + 15, dt, cuda)
+    lane = torch.arange(n_lanes, device=cuda)
+    done = {"none": lane < 0, "two_in_five": lane % 5 >= 3,
+            "all": lane >= 0}[share]
+    rep = trip_check.check_masked_rows(mode, transform(x), spots, strikes,
+                                       mats, call, mkt, n_terms, done)
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("fault", ["uint8", "short", "long", "cpu",
+                                   "strided"])
+@pytest.mark.parametrize("mode", ["loss", "jac"])
+def test_bound_k2_k3_refuse_malformed_done(cuda, mode, fault):
+    """Both bindings refuse done flags that are not a contiguous bool
+    tensor of one entry a lane on the inputs' device."""
+    spots, strikes, mats, call, mkt, x = _edge_problem(15, 15, 130, F32,
+                                                       cuda)
+    n = strikes.shape[0]
+    flags = lambda k, dev=cuda: torch.zeros(k, dtype=torch.bool, device=dev)
+    done = {"uint8": torch.zeros(n, dtype=torch.uint8, device=cuda),
+            "short": flags(n - 1), "long": flags(n + 1),
+            "cpu": flags(n, "cpu"), "strided": flags(2 * n)[::2]}[fault]
+    price = torch.empty((n, 15), dtype=F32, device=cuda)
+    rows = torch.empty((n, 13) if mode == "loss" else (n, 15, 13),
+                       dtype=F32, device=cuda)
+    bind = (loss_kernel.bind_rows_value_and_grad if mode == "loss"
+            else loss_kernel.bind_rows_jacobian)
+    with pytest.raises(ValueError, match="done"):
+        bind(transform(x).contiguous(), spots, 0.03, strikes, mats, call,
+             mkt, 64, 10.0, 0.0, None, price, rows, done)
 
 
 def _no_dropout_copy(model, device):

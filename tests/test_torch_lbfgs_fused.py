@@ -23,6 +23,9 @@ outputs, the host assembly of ``BatchValueAndGrad``) and
     ``calibrate_batch_fused`` (XLA autodiff) over 10 trips at float64, at
     tests/test_torch_optim.py's 1e-9;
   * done lanes hold, bit for bit, over 20 fused trips;
+  * nothing reads a done lane's K2 rows, the premise of the bound K2's
+    skip of done lanes on the card: a 20-trip search ends in the same
+    bits, and the same status words, with those rows set to NaN;
   * the trip's binding rejects, before any trip, every malformed state
     that the wrappers reject, and an objective that does not fit it;
   * the fused route is what the engine takes for the objective (with
@@ -255,6 +258,88 @@ def test_done_lanes_hold_over_20_fused_trips(lanes):
         assert torch.equal(a[done], b[done]), name
     assert int((st.n_evals[~done] == 20).sum()) > 0
     assert not torch.equal(st.x[~done], before.x[~done])
+
+
+def _nan_rows(rows, flags):
+    """K2's (or K3's) outputs with every row of a lane that ``flags`` marks
+    set to NaN: a skipped lane's rows hold whatever they held."""
+    return tuple(t.masked_fill(flags.view(-1, *([1] * (t.dim() - 1))),
+                               float("nan")) for t in rows)
+
+
+def _search_20_trips(ln, dt, route, nan_lanes):
+    """20 trips of the fused route from x0 with lanes 2 and 5 done from
+    the start and lanes 1 and 4 eight evaluations short of ``maxeval``:
+    route "pair" runs ``lbfgs_open_fused_plain``, the plain K2 and
+    ``lbfgs_update_fused_plain`` (a trip's status word: its live count),
+    route "bound" the objective's bound plain trip in place. Before K5
+    the rows of the lanes that ``nan_lanes(st)`` marks are set to NaN
+    (None: none). Returns the state and each trip's status word."""
+    cfg = LBFGSConfig(maxeval=28)
+    obj = _port_objective(ln, dt)
+    st = lb.init_state(torch.tensor(ln["x"], dtype=dt), cfg.history)
+    st.done[[2, 5]] = True
+    st.n_evals[[1, 4]] = cfg.maxeval - 8
+    words = []
+    if route == "bound":
+        status = torch.zeros(2, dtype=torch.int32)
+        if nan_lanes is not None:
+            rows = obj.rows
+            obj.rows = lambda params: _nan_rows(rows(params), nan_lanes(st))
+        trip = obj.bind_trip(st, cfg, status, plain=True)
+        for _ in range(20):
+            trip()
+            words.append(status.tolist())
+        return st, words
+    for _ in range(20):
+        st, x_try, params = loss_kernel.lbfgs_open_fused_plain(st, cfg)
+        rows = obj.rows(params)
+        if nan_lanes is not None:
+            rows = _nan_rows(rows, nan_lanes(st))
+        st = loss_kernel.lbfgs_update_fused_plain(
+            st, x_try, params, *rows, obj.mkt, obj.config.feller_weight,
+            obj.config.bad_loss, cfg)
+        words.append([int((~st.done).sum()), 0])
+    return st, words
+
+
+@pytest.mark.parametrize("dt", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("route", ["pair", "bound"])
+def test_search_never_reads_done_lanes_k2_rows(lanes, route, dt):
+    """The bound K2 skips the lanes done as a trip starts and leaves their
+    rows as they were: a 20-trip search with those rows set to NaN before
+    K5 ends with every field of the state, and every trip's status word,
+    equal in bits to the search as it is. Lanes done from the start and
+    lanes that finish on the way (maxeval, the sentinel lane) are both
+    skipped, while other lanes stay live to the end. Setting a live
+    lane's rows to NaN instead changes the end: the check can see a read."""
+    same, words = _search_20_trips(lanes, dt, route, None)
+    nan, nan_words = _search_20_trips(lanes, dt, route, lambda st: st.done)
+    assert nan_words == words
+    for name, a, b in zip(lb._BState._fields, same, nan):
+        assert not trip_check._bits_differ(a, b).any(), name
+    assert bool(same.done[[1, 2, 4, 5, 6]].all()), same.done
+    assert words[0][0] == 6 and words[-1][0] > 0
+    assert len({w[0] for w in words}) > 2          # lanes finish on the way
+    live, _ = _search_20_trips(lanes, dt, route, lambda st: ~st.done)
+    assert any(trip_check._bits_differ(a, b).any()
+               for a, b in zip(same, live))
+
+
+@pytest.mark.parametrize("fault", ["uint8", "short", "long", "strided",
+                                   "device"])
+def test_done_flags_check_refuses_what_k2_k3_do_not_read(fault):
+    """The done flags a bound K2/K3 reads must be a contiguous bool tensor
+    of one entry a lane on the inputs' device (the bindings' check,
+    ``loss_kernel._check_done``); None and such a tensor pass."""
+    flags = lambda n: torch.zeros(n, dtype=torch.bool)
+    loss_kernel._check_done(None, 4, torch.device("cpu"))
+    loss_kernel._check_done(flags(4), 4, torch.device("cpu"))
+    done = {"uint8": torch.zeros(4, dtype=torch.uint8), "short": flags(3),
+            "long": flags(5), "strided": flags(8)[::2],
+            "device": flags(4).to("meta")}[fault]
+    with pytest.raises(ValueError, match="done"):
+        loss_kernel._check_done(done, 4, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("fault", ["int64_head", "float16", "strided_g",

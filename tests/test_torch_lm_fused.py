@@ -15,6 +15,9 @@ from their outputs, the host assembly of ``PolishObjective``) and
     same bits;
   * padding lanes (``live``) start done and leave the real lanes' bits
     and live counts as they are without them;
+  * nothing reads a done lane's K3 rows, the premise of the bound K3's
+    skip of done lanes on the card: a stage-A run (maxiter 10) ends in
+    the same bits, and the same status words, with those rows set to NaN;
   * ``_polish_lanes_fused`` on the CPU (the fused plain trip) against the
     JAX package's ``_polish_lanes_fused`` (its Pallas Jacobian in interpret
     mode), from the same lanes and starts: model prices within the
@@ -256,6 +259,65 @@ def test_padding_starts_done(lanes, monkeypatch):
         assert _same_bits(a[:4], b), name
     assert _same_bits(padded.x[4:], x0[4:])
     assert not padded.n_iters[4:].any() and not padded.converged[4:].any()
+
+
+def _stage_a(ln, route, nan_lanes):
+    """Stage A's LM (``POLISH_LM`` at maxiter 10, 11 trips) on lanes 0-5,
+    7-9 from x0 * 1.01, lanes 2 and 6 done from the start (as a wave's
+    padding is) and lanes 1 and 4 with five iterations already counted:
+    route "pair" runs ``lm_open_fused_plain``, the plain K1 and K3 and
+    ``lm_update_fused_plain`` (a trip's status word: its live count),
+    route "bound" the objective's bound plain trip in place. Before K7 the
+    K3 rows of the lanes that ``nan_lanes(st)`` marks are set to NaN
+    (None: none). Returns the state and each trip's status word."""
+    keep = [0, 1, 2, 3, 4, 5, 7, 8, 9]
+    obj = _objective(ln, keep)
+    cfg = dataclasses.replace(tcal.POLISH_LM, maxiter=10)
+    st = lm.init_state(torch.tensor(ln["x"][keep]) * 1.01, obj.n_rows, cfg)
+    st.done[[2, 6]] = True
+    st.n_iters[[1, 4]] = 5
+    nan_rows = lambda j: j.masked_fill(nan_lanes(st)[:, None, None],
+                                       float("nan"))
+    words = []
+    if route == "bound":
+        status = torch.zeros(1, dtype=torch.int32)
+        if nan_lanes is not None:
+            rows = obj.rows
+            obj.rows = lambda params32: nan_rows(rows(params32))
+        trip = obj.bind_trip(st, cfg, status, plain=True)
+        for _ in range(cfg.maxiter + 1):
+            trip()
+            words.append(status.tolist())
+        return st, words
+    for k in range(cfg.maxiter + 1):
+        st, x_try, p64, p32 = lm.lm_open_fused_plain(st, cfg, k == 0)
+        j_price = obj.rows(p32)
+        if nan_lanes is not None:
+            j_price = nan_rows(j_price)
+        st = lm.lm_update_fused_plain(
+            st, x_try, p64, p32, obj.prices(p64), j_price, obj.mkt,
+            TCFG.feller_weight, TCFG.bad_loss, cfg)
+        words.append([int((~st.done).sum())])
+    return st, words
+
+
+@pytest.mark.parametrize("route", ["pair", "bound"])
+def test_stage_a_never_reads_done_lanes_k3_rows(lanes, route):
+    """The bound K3 skips the lanes done as a trip starts and leaves their
+    rows as they were: stage A with those rows set to NaN before K7 ends
+    with every field of the state, and every trip's status word, equal in
+    bits to stage A as it is. Lanes done from the start and lanes that
+    finish on the way are both skipped, while other lanes stay live to
+    the last trip. Setting a live lane's rows to NaN instead changes the
+    end: the check can see a read."""
+    same, words = _stage_a(lanes, route, None)
+    nan, nan_words = _stage_a(lanes, route, lambda st: st.done)
+    assert nan_words == words
+    for name, a, b in zip(lm._State._fields, same, nan):
+        assert _same_bits(a, b), name
+    assert words[0] == [7] and words[5][0] <= 5 and words[-2][0] > 0
+    live, _ = _stage_a(lanes, route, lambda st: ~st.done)
+    assert any(not _same_bits(a, b) for a, b in zip(same, live))
 
 
 def test_polish_matches_jax(surface15):
