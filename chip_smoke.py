@@ -20,8 +20,9 @@ Phases:
      band one lane past the outputs, and two launches' bits; K2, K3 and
      K2<double> bound with done flags (lanes 1, 15, 1537; none, two in
      five, all done): live lanes' rows in bits against the one-shot
-     launch, done lanes' rows left as planted; K2 alone with 0-99.9 % of
-     3000 lanes done at N = 64 and of 2000 at N = 128;
+     launch, done lanes' rows left as planted; K2 and K3 alone at each
+     block width and the rule's, at 15 lanes and with 0-99.9 % of 3000
+     lanes done at N = 64 and of 2000 at N = 128;
   5. K3: residual Jacobian vs jacfwd of the plain residuals; K2 and K3 also
      at L = 12 / q = 0.02 (together, q alone, L alone);
  5b. K4/K5, the L-BFGS trip (csrc/lbfgs_trip.cu): one trip from seeded
@@ -296,7 +297,7 @@ def main():
     build_s = kernel_build.build("cos_price", "cos_vg", "lbfgs_trip",
                                  "lm_trip")
     print(f"[2] build: {build_s:.1f} s (nvcc {' '.join(kernel_build.NVCC_FLAGS)})")
-    k1_spills, trip_spills, lm_spills = [], [], []
+    k1_spills, vg_spills, trip_spills, lm_spills = [], [], [], []
     for name in ("cos_price", "cos_vg", "lbfgs_trip", "lm_trip"):
         log = kernel_build.BUILD / f"{name}.log"
         if log.exists():
@@ -321,11 +322,18 @@ def main():
                         kind = "float" if t.group(2) == "f" else "double"
                         fused = ", fused" if t.group(3) == "1" else ""
                         entry = f" {t.group(1)}<{kind}{fused}>"
+                    t = re.search(r"cos_vg_kernelI([fd])Li(\d)E",
+                                  m.group(1))
+                    if t:
+                        kind = "float" if t.group(1) == "f" else "double"
+                        entry = f" cos_vg_kernel<{kind}, W={t.group(2)}>"
                 if "registers" in line or "spill" in line:
                     print(f"[2] {name}{entry}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m and name == "cos_price":
                     k1_spills.append(int(m.group(1)))
+                if m and name == "cos_vg" and "cos_vg_kernel" in entry:
+                    vg_spills.append(int(m.group(1)))
                 if m and name == "lbfgs_trip":
                     trip_spills.append(int(m.group(1)))
                 if m and name == "lm_trip":
@@ -336,6 +344,12 @@ def main():
           f"float/double, and fused at double): {lm_spills} B")
     check(k1_spills and not any(k1_spills),
           "K1 spills registers (ptxas reports spill stores)")
+    print(f"[2] cos_vg spill stores per width {loss_kernel.WARPS}: "
+          f"{vg_spills} B")
+    check(len(vg_spills) == sum(map(len, loss_kernel.WARPS.values()))
+          and not any(vg_spills),
+          "K2/K3 spill registers at some width (ptxas reports spill "
+          "stores)")
     check(trip_spills and not any(trip_spills),
           "K4/K5 spill registers (ptxas reports spill stores)")
     check(len(lm_spills) == 6 and not any(lm_spills),
@@ -733,37 +747,47 @@ def main():
                 call[keep], mkt[keep].to(dt), x[keep].to(dt)), n_bind
 
     def guard_and_bits(phase, mode, prob, n_terms):
-        """Launch the C entry on outputs one lane longer than needed,
-        filled with a sentinel: the tail must stay untouched and the head
-        must equal, bit for bit, two launches through the wrapper."""
+        """Launch the C entry at each block width on outputs one lane
+        longer than needed, filled with a sentinel: the tail must stay
+        untouched and the head must equal, bit for bit, two launches
+        through the wrapper."""
         spots, strikes, mats, call, mkt, x = prob
         params = transform(x)
         dt = params.dtype
         symbol, mode_no, _ = loss_kernel._ENTRIES[mode, dt]
         lanes, n = strikes.shape
-        price = torch.full((lanes + 1, n), -12345.0, dtype=dt, device=dev)
-        grad = torch.full((lanes + 1, 13) if mode_no == 0
-                          else (lanes + 1, n, 13), -12345.0, dtype=dt,
-                          device=dev)
         ins = [params, spots, strikes, mats, call, mkt,
                loss_kernel.maturity_groups(mats)]
-        err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
-            *(t.contiguous().data_ptr() for t in ins), None, price.data_ptr(),
-            grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n, n_terms, mode_no,
-            torch.cuda.current_stream().cuda_stream)
+        outs = []
+        for warps in loss_kernel.WARPS[symbol]:
+            price = torch.full((lanes + 1, n), -12345.0, dtype=dt,
+                               device=dev)
+            grad = torch.full((lanes + 1, 13) if mode_no == 0
+                              else (lanes + 1, n, 13), -12345.0, dtype=dt,
+                              device=dev)
+            err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
+                *(t.contiguous().data_ptr() for t in ins), None,
+                price.data_ptr(), grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n,
+                n_terms, mode_no, warps,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{symbol} {mode} at {warps} warps: error {err}")
+            outs.append((price, grad))
         wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
                 else loss_kernel.rows_jacobian)
         a = wrap(params, spots, 0.03, strikes, mats, call, mkt, n_terms)
         b = wrap(params, spots, 0.03, strikes, mats, call, mkt, n_terms)
         torch.cuda.synchronize()
-        tail_ok = bool((price[lanes:] == -12345.0).all()
-                       and (grad[lanes:] == -12345.0).all())
-        same = all(torch.equal(u, v) for u, v in zip(a, b)) and torch.equal(
-            price[:lanes], a[0]) and torch.equal(grad[:lanes], a[1])
+        tail_ok = all(bool((price[lanes:] == -12345.0).all()
+                           and (grad[lanes:] == -12345.0).all())
+                      for price, grad in outs)
+        same = all(torch.equal(u, v) for u, v in zip(a, b)) and all(
+            torch.equal(price[:lanes], a[0]) and torch.equal(grad[:lanes],
+                                                             a[1])
+            for price, grad in outs)
         print(f"[{phase}] {symbol} mode {mode}: guard band untouched "
-              f"{tail_ok}, "
-              f"identical bits over three launches {same}")
-        check(err == 0 and tail_ok, f"{symbol} {mode}: wrote past its rows")
+              f"{tail_ok}, identical bits over the widths "
+              f"{loss_kernel.WARPS[symbol]} and two wrapper launches {same}")
+        check(tail_ok, f"{symbol} {mode}: wrote past its rows")
         check(same, f"{symbol} {mode}: launches differ in their bits")
 
     def edge_checks(label, n_terms, dt, ftol, gtol, with_jac):
@@ -848,12 +872,16 @@ def main():
     print(f"[4] K2 / [5] K3 / K2<double> bound with done flags, lanes 1, "
           f"15, 1537 x none, 2 in 5, all done: {n_cases} cases, live rows "
           f"in bits, done rows untouched, flags re-read")
-    # K2 with a share of its lanes done (spread at random), the kernel
-    # alone: 3000 lanes at N = 64 (the pure cells' search) and 2000 at
-    # N = 128 (the hybrid's refine). Above about one wave of resident
-    # blocks its time follows the live lanes; below, one block's latency.
+    # K2 and K3 with a share of their lanes done (spread at random), the
+    # kernel alone at each block width and at the rule's (the live count
+    # given, as the trips give it): 15 lanes (b5), 3000 lanes at N = 64
+    # (the pure cells' search and polish) and 2000 at N = 128 (the
+    # hybrid's refine). A launch costs one lane's path through its block
+    # (the floor, which the wider blocks shorten) and, above it, a slope
+    # in the live lanes.
     masked = {}
-    for n_lanes, n_terms, shares in ((3000, 64, (0.0, 0.4, 0.8, 0.999)),
+    for n_lanes, n_terms, shares in ((15, 64, (0.0,)), (15, 128, (0.0,)),
+                                     (3000, 64, (0.0, 0.4, 0.8, 0.999)),
                                      (2000, 128, (0.0, 0.78, 0.999))):
         prob = lanes_problem(n_lanes, 31 + n_terms)
         vg = loss_kernel.make_batch_value_and_grad(
@@ -861,21 +889,35 @@ def main():
             CalibrationConfig(pricer=PricerConfig(n_terms=n_terms)))
         params = transform(prob[5]).contiguous()
         done = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
-        k2 = vg.bind_rows(params, torch.empty_like(vg.mkt),
-                          torch.empty_like(params), done)
+        price = torch.empty_like(vg.mkt)
+        bound = {
+            "K2": vg.bind_rows(params, price, torch.empty_like(params), done),
+            "K3": loss_kernel.bind_rows_jacobian(
+                params, vg.spots, 0.03, vg.strikes, vg.maturities, vg.is_call,
+                vg.mkt, n_terms, 10.0, 0.0, vg.groups, price,
+                torch.empty((n_lanes, 15, 13), dtype=f32, device=dev),
+                done)}
         order = torch.randperm(n_lanes, generator=torch.Generator()
                                .manual_seed(n_lanes)).to(dev)
         for share in shares:
             done.zero_()
             done[order[:round(share * n_lanes)]] = True
-            key = f"L{n_lanes}_N{n_terms}_done{share}"
-            masked[key] = {"live": n_lanes - int(done.sum()),
-                           "events_ms": cuda_time_ms(k2),
-                           "alone_ms": alone_ms("cos_vg_kernel", k2)}
-            print(f"[4] K2 L={n_lanes} N={n_terms}, {share:.1%} done "
-                  f"({masked[key]['live']} live): kernel alone "
-                  f"{masked[key]['alone_ms']:.4f} ms, events "
-                  f"{masked[key]['events_ms']:.4f} ms")
+            live = n_lanes - int(done.sum())
+            for label, launch in bound.items():
+                key = f"{label}_L{n_lanes}_N{n_terms}_done{share}"
+                row = {"live": live, "picks": loss_kernel.launch_warps(
+                    live, loss_kernel.slots("cos_vg_f32", 15, n_terms, dev))}
+                for warps in (*loss_kernel.WARPS["cos_vg_f32"], None):
+                    k = (lambda w=warps: launch(live, w))
+                    row[f"W{warps or 'rule'}_ms"] = alone_ms("cos_vg_kernel",
+                                                             k)
+                row["events_ms"] = cuda_time_ms(lambda: launch(live))
+                masked[key] = row
+                print(f"[4] {label} L={n_lanes} N={n_terms}, {share:.1%} "
+                      f"done ({live} live), kernel alone: " + ", ".join(
+                          f"{k[:-3]} {v:.4f} ms" for k, v in row.items()
+                          if k.startswith("W")) + f" (rule picks W"
+                      f"{row['picks']}); events {row['events_ms']:.4f} ms")
     record["cos_vg_loss"]["masked_ms"] = masked
 
     def kernel_vs_plain(label, name, kern, plain, work, dt, keep):

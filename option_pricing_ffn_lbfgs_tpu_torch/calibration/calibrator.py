@@ -256,7 +256,8 @@ class PolishObjective:
         state ``st`` and ``status`` (``levenberg_marquardt._bind_trip``):
         on CUDA tensors (unless ``plain``) fused K6, K1<double> and K3 into
         bound buffers (K3 skipping the lanes that ``st.done`` flags as the
-        trip starts: finished lanes, a wave's padding), fused K7; else
+        trip starts: finished lanes, a wave's padding; ``trip(live)``'s
+        count of them not done sets its blocks' width), fused K7; else
         ``lm_open_fused_plain``, ``prices``, ``rows`` and
         ``lm_update_fused_plain`` in place. The first trip is
         the bootstrap (K1 at x0). None for no lanes, or where the fused
@@ -283,14 +284,14 @@ class PolishObjective:
                 self.groups32, torch.empty_like(self.mkt32), trial.jac,
                 st.done)
 
-            def trip():
+            def trip(live=None):
                 kernels.open(boot.pop() if boot else False)
                 k1()
-                k3()
+                k3(live)
                 kernels.update()
             return trip
 
-        def trip():
+        def trip(live=None):
             x_try, params64, params32 = lm._open_fused_plain_inplace(
                 st, config, status, boot.pop() if boot else False)
             lm._update_fused_plain_inplace(

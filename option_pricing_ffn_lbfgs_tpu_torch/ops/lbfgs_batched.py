@@ -715,8 +715,10 @@ def read_live(status: torch.Tensor) -> int:
 
 def _bind_trip(vg_fn: Callable, st: _BState, config: LBFGSConfig,
                status: torch.Tensor, plain: bool) -> Callable:
-    """One trip of the engine as a function of no arguments, bound once:
-    everything checked here raises before the first trip. An objective
+    """One trip of the engine, ``trip(live=None)``, bound once: everything
+    checked here raises before the first trip; ``live``, the lanes not
+    done as the trip starts, reaches a bound K2 (its blocks' width). An
+    objective
     with a ``bind_trip(st, config, status, plain)`` method binds its own
     trip (it returns None where its fused kernels do not take it). Else on
     CUDA tensors (unless ``plain``) K4, ``vg_fn`` and K5; otherwise the
@@ -732,12 +734,12 @@ def _bind_trip(vg_fn: Callable, st: _BState, config: LBFGSConfig,
         x_try = torch.empty_like(st.x)
         kernels = TripKernels(st, config, status, x_try)
 
-        def trip():
+        def trip(live=None):
             kernels.open()
             kernels.update(*vg_fn(x_try))
         return trip
 
-    def trip():
+    def trip(live=None):
         x_try = _open_plain_inplace(st, config, status)
         _, f_try, g_try = _trial(st, x_try, *vg_fn(x_try))
         _update_plain_inplace(st, x_try, f_try, g_try, config, status)

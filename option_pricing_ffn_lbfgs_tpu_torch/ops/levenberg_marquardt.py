@@ -642,9 +642,10 @@ def _bind_trip(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
                config: LMConfig, lam0, status: torch.Tensor,
                plain: bool, live: int = None):
     """``(state, trip)``: the engine's state before its bootstrap trip
-    (``init_state``, with ``live``) and one trip as a function of no
-    arguments, bound once, so that everything checked here raises before
-    the first trip. An objective with
+    (``init_state``, with ``live``) and one trip, ``trip(live=None)``,
+    bound once, so that everything checked here raises before the first
+    trip (``live``, the lanes not done as the trip starts, reaches a bound
+    K3: its blocks' width). An objective with
     ``bind_trip(st, config, status, plain)`` and ``n_rows`` binds its own
     trip (it returns None where its fused kernels do not take it). Else
     the residuals are taken at x0 first (the bootstrap trip's step is
@@ -670,12 +671,12 @@ def _bind_trip(residual_fn: Callable, jac_fn: Callable, x0: torch.Tensor,
         x_try = torch.empty_like(st.x)
         kernels = LMTripKernels(st, config, status, x_try)
 
-        def trip():
+        def trip(live=None):
             kernels.open()
             kernels.update(*evaluate(x_try))
         return st, trip
 
-    def trip():
+    def trip(live=None):
         x_try = _open_plain_inplace(st, config, status)
         _, r_try, j_try = _trial(st, x_try, *evaluate(x_try))
         _update_plain_inplace(st, x_try, r_try, j_try, config, status)

@@ -39,6 +39,14 @@ which K5 or K7 of the previous trip wrote): a done lane's block exits at
 once and its rows keep what they held, which nothing reads, since K5 and
 K7 touch only lanes that are not done. The one-shot wrappers price every
 lane.
+
+Each launch picks the width of a lane's block (``launch_warps``; 4 or 8
+warps in float, 2, 4 or 8 in double, ``WARPS``): the widest whose resident
+blocks hold the lanes the launch prices (inside a bound trip the live
+count of the engine's last read, else the launched lanes), and the
+narrowest when none does. Every width gives the same bits
+(``csrc/cos_vg.cu``); a wider block shortens one lane's path where the
+lanes do not fill the card.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ import torch
 from ..calibration.loss import feller_penalty, residual_rows
 from ..calibration.transforms import _EXP_IDX, _TANH_IDX, transform
 from ..models.double_heston import DHParams, price_options
+from ..utils import tracing
 from ..utils.config import CalibrationConfig, LBFGSConfig
 from . import kernel_build
 from . import lbfgs_batched as lb
@@ -65,9 +74,15 @@ _ENTRIES = {
     ("loss", torch.float64): ("cos_vg_f64", 0, "cos_vg_loss_f64"),
 }
 # params, spots, strikes, mats, is_call, mkt, groups, done (or NULL),
-# price_out, grad_out; rate, q, L; n_lanes, n_opt, n_terms, mode; stream
+# price_out, grad_out; rate, q, L; n_lanes, n_opt, n_terms, mode, warps;
+# stream
 ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_double] * 3
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# The widths of a lane's block, in warps, by C entry; the first is the one
+# of launches that fill the card (csrc/cos_vg.cu).
+WARPS = {"cos_vg_f32": (4, 8), "cos_vg_f64": (2, 4, 8)}
+# (C entry, n_opt, n_terms, device index) -> {warps: lanes resident}
+_SLOTS = {}
 # Each variance factor's (sigma, kappa, theta) in the parameter vector.
 FELLER_IDX = tuple(tuple(DHParams._fields.index(f"{name}{i}")
                          for name in ("sigma", "kappa", "theta"))
@@ -123,16 +138,69 @@ def _inputs(mode, params, spots, strikes, maturities, is_call, mkt, groups):
     return symbol, mode_no, count, ins
 
 
-def _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms,
-          done=None):
-    """The C entry and its argument tuple for a launch into ``price`` and
-    ``grad``, skipping the lanes that ``done`` flags (None: none)."""
+def launch_warps(lanes: int, slots: dict) -> int:
+    """The width of a launch's blocks, in warps: the widest of ``slots``
+    (warps -> lanes the card holds at once at that width) whose lanes hold
+    ``lanes``, else the narrowest, the width of launches that fill the
+    card."""
+    return max((w for w, n in slots.items() if lanes <= n),
+               default=min(slots))
+
+
+def slots(symbol: str, n_opt: int, n_terms: int, device) -> dict:
+    """``{warps: lanes}``: for each width, the lanes a launch of ``n_opt``
+    rows at N = ``n_terms`` holds resident on ``device`` (SMs x
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its shared
+    memory), queried once and cached."""
+    index = torch.device(device).index
+    key = (symbol, n_opt, n_terms,
+           torch.cuda.current_device() if index is None else index)
+    if key not in _SLOTS:
+        query = kernel_build.entry(
+            "cos_vg", symbol.replace("cos_vg_", "cos_vg_slots_"),
+            [ctypes.c_int] * 3)
+        with torch.cuda.device(key[3]):
+            got = {w: query(n_opt, n_terms, w) for w in WARPS[symbol]}
+        for w, n in got.items():
+            if n < 0:
+                kernel_build.check(-n, f"{symbol} slots at {w} warps")
+        _SLOTS[key] = got
+    return _SLOTS[key]
+
+
+def _count(key: str, wide: bool) -> None:
+    """Count a launch: ``LAUNCHES[key]`` always; inside a recorded entry
+    also ``cos_vg.launches`` and, if its blocks are ``wide`` (wider than
+    those of launches that fill the card), ``cos_vg.launches_wide``
+    (``utils/tracing.py``)."""
+    LAUNCHES[key] += 1
+    tracing.count("cos_vg.launches")
+    if wide:
+        tracing.count("cos_vg.launches_wide")
+
+
+def _launcher(symbol, mode_no, count, ins, price, grad, rate, q, L,
+              n_terms, done=None):
+    """``launch(live=None, warps=None)``: one launch into ``price`` and
+    ``grad``, skipping the lanes that ``done`` flags (None: none), at the
+    width ``launch_warps`` picks for ``live`` lanes (None: every lane the
+    launch covers), or at ``warps``."""
     lanes, n_opt = price.shape
-    return kernel_build.entry("cos_vg", symbol, ARGTYPES), (
-        *(t.data_ptr() for t in ins),
-        None if done is None else done.data_ptr(), price.data_ptr(),
-        grad.data_ptr(), float(rate), float(q), float(L), lanes, n_opt,
-        n_terms, mode_no, torch.cuda.current_stream(price.device).cuda_stream)
+    fn = kernel_build.entry("cos_vg", symbol, ARGTYPES)
+    table = slots(symbol, n_opt, n_terms, price.device)
+    head = (*(t.data_ptr() for t in ins),
+            None if done is None else done.data_ptr(), price.data_ptr(),
+            grad.data_ptr(), float(rate), float(q), float(L), lanes, n_opt,
+            n_terms, mode_no)
+    stream = torch.cuda.current_stream(price.device).cuda_stream
+    narrowest = min(table)
+
+    def launch(live=None, warps=None, _keep=(ins, price, grad, done)):
+        if warps is None:
+            warps = launch_warps(lanes if live is None else live, table)
+        kernel_build.check(fn(*head, warps, stream), count)
+        _count(count, warps > narrowest)
+    return launch
 
 
 def _check_done(done, lanes: int, device):
@@ -159,22 +227,23 @@ def _launch(mode, params, spots, rate, strikes, maturities, is_call, mkt,
                        dtype=dt, device=dev)
     if lanes * n_opt == 0:
         return price, grad.zero_()
-    fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms)
-    kernel_build.check(fn(*args), count)
-    LAUNCHES[count] += 1
+    _launcher(symbol, mode_no, count, ins, price, grad, rate, q, L,
+              n_terms)()
     return price, grad
 
 
 def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
                              is_call, mkt, n_terms: int, L: float, q: float,
                              groups, price, grad, done=None):
-    """K2 bound once, for the fused L-BFGS trip: a launcher with no
-    arguments that prices ``params [L, 13]`` (rewritten in place between
-    launches) into the preallocated ``price [L, n]`` and ``grad [L, 13]``,
-    skipping the lanes that ``done`` (bool ``[L]``, rewritten in place
-    between launches; None: no lane) flags, whose rows it leaves as they
-    are. Every check of ``rows_value_and_grad`` runs here, once; CUDA
-    tensors only, at least one row."""
+    """K2 bound once, for the fused L-BFGS trip: a launcher,
+    ``launch(live=None, warps=None)``, that prices ``params [L, 13]``
+    (rewritten in place between launches) into the preallocated ``price
+    [L, n]`` and ``grad [L, 13]``, skipping the lanes that ``done`` (bool
+    ``[L]``, rewritten in place between launches; None: no lane) flags,
+    whose rows it leaves as they are. ``live``, the lanes not done, sets
+    the blocks' width (``launch_warps``; None: all L lanes), unless
+    ``warps`` gives it. Every check of ``rows_value_and_grad`` runs here,
+    once; CUDA tensors only, at least one row."""
     symbol, mode_no, count, ins = _inputs("loss", params, spots, strikes,
                                           maturities, is_call, mkt, groups)
     lanes, n_opt = strikes.shape
@@ -189,24 +258,20 @@ def bind_rows_value_and_grad(params, spots, rate, strikes, maturities,
     if not params.is_contiguous():
         raise ValueError("params must be contiguous: K2 reads it in place")
     _check_done(done, lanes, params.device)
-    fn, args = _args(symbol, mode_no, ins, price, grad, rate, q, L, n_terms,
-                     done)
-
-    def launch(_keep=(ins, price, grad, done)):
-        kernel_build.check(fn(*args), count)
-        LAUNCHES[count] += 1
-    return launch
+    return _launcher(symbol, mode_no, count, ins, price, grad, rate, q, L,
+                     n_terms, done)
 
 
 def bind_rows_jacobian(params, spots, rate, strikes, maturities, is_call,
                        mkt, n_terms: int, L: float, q: float, groups, price,
                        jac, done=None):
-    """K3 bound once, for the fused LM trip: a launcher with no arguments
-    that differentiates ``params [L, 13]`` (float32, rewritten in place
-    between launches) into the preallocated ``price [L, n]`` and ``jac
-    [L, n, 13]``, skipping the lanes that ``done`` flags, as K2's binding
-    does. Every check of ``rows_jacobian`` runs here, once; CUDA tensors
-    only, at least one row."""
+    """K3 bound once, for the fused LM trip: a launcher, ``launch(live=None,
+    warps=None)`` as K2's binding gives, that differentiates ``params [L,
+    13]`` (float32, rewritten in place between launches) into the
+    preallocated ``price [L, n]`` and ``jac [L, n, 13]``, skipping the
+    lanes that ``done`` flags, as K2's binding does. Every check of
+    ``rows_jacobian`` runs here, once; CUDA tensors only, at least one
+    row."""
     symbol, mode_no, count, ins = _inputs("jac", params, spots, strikes,
                                           maturities, is_call, mkt, groups)
     lanes, n_opt = strikes.shape
@@ -221,13 +286,8 @@ def bind_rows_jacobian(params, spots, rate, strikes, maturities, is_call,
     if not params.is_contiguous():
         raise ValueError("params must be contiguous: K3 reads it in place")
     _check_done(done, lanes, params.device)
-    fn, args = _args(symbol, mode_no, ins, price, jac, rate, q, L, n_terms,
-                     done)
-
-    def launch(_keep=(ins, price, jac, done)):
-        kernel_build.check(fn(*args), count)
-        LAUNCHES[count] += 1
-    return launch
+    return _launcher(symbol, mode_no, count, ins, price, jac, rate, q, L,
+                     n_terms, done)
 
 
 def rows_value_and_grad_plain(params, spots, rate, strikes, maturities,
@@ -412,7 +472,8 @@ class BatchValueAndGrad:
         """The fused L-BFGS trip on this objective, bound once for the
         engine's state ``st`` and ``status`` (``lbfgs_batched._bind_trip``):
         on CUDA tensors (unless ``plain``) fused K4, K2 (skipping the lanes
-        that ``st.done`` flags as the trip starts) and fused K5, else
+        that ``st.done`` flags as the trip starts; ``trip(live)``'s count
+        of them not done sets its blocks' width) and fused K5, else
         ``lbfgs_open_fused_plain``, ``rows`` and ``lbfgs_update_fused_plain``
         in place. None where the fused kernels do not take this objective
         (``lb.MAX_ROWS`` rows a lane or more): the engine then takes its
@@ -429,13 +490,13 @@ class BatchValueAndGrad:
             k2 = self.bind_rows(trial.params_try, trial.price, trial.g_price,
                                 st.done)
 
-            def trip():
+            def trip(live=None):
                 kernels.open()
-                k2()
+                k2(live)
                 kernels.update()
             return trip
 
-        def trip():
+        def trip(live=None):
             x_try = lb._open_plain_inplace(st, config, status)
             params = transform(x_try)
             price, g_price = self.rows(params)

@@ -56,7 +56,7 @@ MATS = np.repeat([0.25, 0.5, 1.0], 5)
 # (label, wrapper, lanes, dtype, N): the polish residual at 512 x 3 and at
 # one surface's 15 lanes, the generator's 5000 surfaces, the winner's
 # repricing; the search and polish at 512 x 3, the hybrid's refine and
-# polish, 15 lanes, K2<double>
+# polish, 15 lanes, 1000 x 3 and 2000 lanes at N = 64 and 128, K2<double>
 KERNEL_CASES = (("K1<double>", "price", 1536, "float64", 64),
                 ("K1<double>", "price", 15, "float64", 64),
                 ("K1<double>", "price", 5000, "float64", 128),
@@ -70,7 +70,15 @@ KERNEL_CASES = (("K1<double>", "price", 1536, "float64", 64),
                 ("K2", "loss", 15, "float32", 64),
                 ("K3", "jac", 15, "float32", 64),
                 ("K2<double>", "loss", 15, "float64", 128),
-                ("K2<double>", "loss", 1536, "float64", 128))
+                ("K2<double>", "loss", 1536, "float64", 128),
+                ("K2", "loss", 3000, "float32", 64),
+                ("K3", "jac", 3000, "float32", 64),
+                ("K2", "loss", 15, "float32", 128),
+                ("K3", "jac", 15, "float32", 128),
+                ("K2", "loss", 1536, "float32", 128),
+                ("K2", "loss", 3000, "float32", 128),
+                ("K2", "loss", 264, "float32", 64),
+                ("K3", "jac", 264, "float32", 64))
 
 
 def measure(outputs: str, kernels_only: bool) -> dict:

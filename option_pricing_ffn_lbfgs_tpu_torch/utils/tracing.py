@@ -28,6 +28,9 @@ done, so it is launched and never live); ``.issue_ns``, host nanoseconds
 from a trip's start (the last read's end) to its read's start;
 ``.read_ns``, host nanoseconds inside the read. Two clock reads a trip,
 one of them between a read and the next launch; no device read, no sync.
+K2/K3 add ``cos_vg.launches``, each launch, and ``cos_vg.launches_wide``,
+each launch whose blocks are wider than those of launches that fill the
+card (``count``; ``ops/loss_kernel.py``).
 The spans' ``record_function``s are user annotations in the profiler's
 events, on the card too, where each spans its kernels and the gaps
 between: a sum of device time leaves them out
@@ -161,15 +164,22 @@ def span(name: str):
     return _Span(name) if _open else _NULL
 
 
-def trips(engine: str, lanes: int, live: int, trip: Callable[[], None],
+def count(key: str) -> None:
+    """Add one to the counter ``key``, inside a recorded entry only."""
+    if _open:
+        _counters[key] = _counters.get(key, 0) + 1
+
+
+def trips(engine: str, lanes: int, live: int, trip: Callable[[int], None],
           read: Callable[[], int]) -> None:
-    """An engine's loop: ``trip()`` then ``live = read()`` until no lane
-    is live, from ``live`` of the ``lanes`` that each trip prices. Inside
-    a recorded entry the loop runs in the span ``<engine>.loop`` and then
-    adds its counts to ``<engine>.*``; elsewhere it is the loop alone."""
+    """An engine's loop: ``trip(live)`` then ``live = read()`` until no
+    lane is live, from ``live`` of the ``lanes`` that each trip prices.
+    Inside a recorded entry the loop runs in the span ``<engine>.loop`` and
+    then adds its counts to ``<engine>.*``; elsewhere it is the loop
+    alone."""
     if not _open:
         while live:
-            trip()
+            trip(live)
             live = read()
         return
     clock = time.perf_counter_ns
@@ -177,7 +187,7 @@ def trips(engine: str, lanes: int, live: int, trip: Callable[[], None],
     with _Span(engine + ".loop"):
         t0 = clock()
         while live:
-            trip()
+            trip(live)
             t1 = clock()
             next_live = read()
             t2 = clock()

@@ -417,32 +417,39 @@ def test_edge_shapes_match_plain(cuda, kernel, n_opt, n_lanes):
 @pytest.mark.parametrize("mode,dt,n_terms", [
     ("loss", F32, 64), ("jac", F32, 64), ("loss", F64, 128)])
 def test_guard_band_and_identical_bits(cuda, mode, dt, n_terms):
-    """The C entry, called on outputs one lane longer than needed and filled
-    with a sentinel, leaves the tail untouched; its rows equal, bit for bit,
-    two launches through the wrapper (sums in a fixed order, no atomics)."""
+    """The C entry, called at each block width on outputs one lane longer
+    than needed and filled with a sentinel, leaves the tail untouched; its
+    rows equal, bit for bit, two launches through the wrapper (sums in a
+    fixed order, no atomics)."""
     spots, strikes, mats, call, mkt, x = _edge_problem(15, 15, 5, dt, cuda)
     params = transform(x)
     symbol, mode_no, _ = loss_kernel._ENTRIES[mode, dt]
     lanes, n = strikes.shape
-    price = torch.full((lanes + 1, n), -12345.0, dtype=dt, device=cuda)
-    grad = torch.full((lanes + 1, 13) if mode == "loss" else
-                      (lanes + 1, n, 13), -12345.0, dtype=dt, device=cuda)
     ins = [params, spots, strikes, mats, call, mkt,
            loss_kernel.maturity_groups(mats)]
-    err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
-        *(t.contiguous().data_ptr() for t in ins), None, price.data_ptr(),
-        grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n, n_terms, mode_no,
-        torch.cuda.current_stream().cuda_stream)
+    outs = []
+    for warps in loss_kernel.WARPS[symbol]:
+        price = torch.full((lanes + 1, n), -12345.0, dtype=dt, device=cuda)
+        grad = torch.full((lanes + 1, 13) if mode == "loss" else
+                          (lanes + 1, n, 13), -12345.0, dtype=dt,
+                          device=cuda)
+        err = kernel_build.entry("cos_vg", symbol, loss_kernel.ARGTYPES)(
+            *(t.contiguous().data_ptr() for t in ins), None,
+            price.data_ptr(), grad.data_ptr(), 0.03, 0.0, 10.0, lanes, n,
+            n_terms, mode_no, warps, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        outs.append((price, grad))
     wrap = (loss_kernel.rows_value_and_grad if mode == "loss"
             else loss_kernel.rows_jacobian)
     a = wrap(params, spots, 0.03, strikes, mats, call, mkt, n_terms)
     b = wrap(params, spots, 0.03, strikes, mats, call, mkt, n_terms)
     torch.cuda.synchronize()
-    assert err == 0
-    assert bool((price[lanes:] == -12345.0).all())
-    assert bool((grad[lanes:] == -12345.0).all())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert torch.equal(price[:lanes], a[0]) and torch.equal(grad[:lanes], a[1])
+    for price, grad in outs:
+        assert bool((price[lanes:] == -12345.0).all())
+        assert bool((grad[lanes:] == -12345.0).all())
+        assert torch.equal(price[:lanes], a[0])
+        assert torch.equal(grad[:lanes], a[1])
 
 
 # kernel -> (mode, dtype, N) of a bound K2/K3 launch that skips done lanes
@@ -492,6 +499,134 @@ def test_bound_k2_k3_refuse_malformed_done(cuda, mode, fault):
     with pytest.raises(ValueError, match="done"):
         bind(transform(x).contiguous(), spots, 0.03, strikes, mats, call,
              mkt, 64, 10.0, 0.0, None, price, rows, done)
+
+
+def _surface130(n_lanes, dt, device):
+    """Lanes of 130 options, 10 maturities x 13 strikes (70-130, calls at
+    and above the money), from TRUE and from small-variance parameters,
+    whose short maturities' rows at far strikes have widenings that bind:
+    more effective groups than a block's slices hold at once."""
+    mats = np.repeat([0.02, 0.05, 0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0],
+                     13)
+    strikes = np.tile(np.linspace(70.0, 130.0, 13), 10)
+    small = np.where(np.isin(np.arange(13), [0, 2, 5, 7]), 0.3, 1.0)
+    rng = np.random.default_rng(130)
+    params = np.stack([_vec(TRUE) * (small if i % 2 else 1.0)
+                       * (1 + rng.uniform(-0.05, 0.05, 13))
+                       for i in range(n_lanes)])
+    t = lambda a: torch.tensor(np.asarray(a), dtype=F64, device=device)
+    strikes = t(np.tile(strikes, (n_lanes, 1)))
+    mats = t(np.tile(mats, (n_lanes, 1)))
+    call = strikes >= 100.0
+    spots = t(np.full(n_lanes, 100.0))
+    mkt = cos_kernel.price_surfaces_plain(t(params * 1.1), spots, 0.03,
+                                          strikes, mats, call) + 0.01
+    x = inverse_transform(t(params))
+    n_mat, n_eff = opcount.effective_groups(transform(x), spots, strikes,
+                                            mats)
+    assert bool((n_eff > n_mat).any())
+    return (spots.to(dt), strikes.to(dt), mats.to(dt), call, mkt.to(dt),
+            x.to(dt))
+
+
+def _at_every_width(mode, n_terms, prob, done=None):
+    """``{warps: (price, rows)}``: the bound K2 (``mode`` "loss") or K3
+    ("jac") launched once at each block width into outputs planted with a
+    guard, skipping the lanes ``done`` flags."""
+    spots, strikes, mats, call, mkt, x = prob
+    params = transform(x).contiguous()
+    lanes, n = strikes.shape
+    bind = (loss_kernel.bind_rows_value_and_grad if mode == "loss"
+            else loss_kernel.bind_rows_jacobian)
+    out = {}
+    symbol = loss_kernel._ENTRIES[mode, x.dtype][0]
+    for warps in loss_kernel.WARPS[symbol]:
+        price = torch.full((lanes, n), -12345.0, dtype=params.dtype,
+                           device=params.device)
+        rows = torch.full((lanes, 13) if mode == "loss" else (lanes, n, 13),
+                          -12345.0, dtype=params.dtype, device=params.device)
+        bind(params, spots, 0.03, strikes, mats, call, mkt, n_terms, 10.0,
+             0.0, None, price, rows, done)(warps=warps)
+        out[warps] = (price, rows)
+    torch.cuda.synchronize()
+    return out
+
+
+# case -> (lanes, share of them done); "130" is _surface130's
+WIDTH_CASES = {"single": (1, 0.0), "lanes15": (15, 0.0),
+               "surface130": (4, 0.0), "done0": (1536, 0.0),
+               "done40": (1536, 0.4), "done99.9": (1536, 0.999)}
+
+
+@pytest.mark.parametrize("case", list(WIDTH_CASES))
+@pytest.mark.parametrize("n_terms", [64, 128])
+@pytest.mark.parametrize("kernel", list(MASKED))
+def test_k2_k3_every_width_same_bits(cuda, kernel, n_terms, case):
+    """K2, K3 and K2<double> at every block width (float 4 and 8 warps,
+    double 2, 4 and 8) give the narrowest width's outputs under
+    torch.equal: one lane, 15 lanes, 130-option
+    surfaces whose groups take more than one chunk, and 1536 lanes with 0,
+    40 and 99.9 % of them done (their rows left as planted). Each shape
+    has lanes whose widening binds, so that rows are groups of their
+    own."""
+    mode, dt, _ = MASKED[kernel]
+    lanes, share = WIDTH_CASES[case]
+    prob = (_surface130(lanes, dt, cuda) if case == "surface130" else
+            _edge_problem(lanes, 15, 200 + lanes, dt, cuda))
+    done = None
+    if share:
+        order = torch.randperm(lanes, generator=torch.Generator()
+                               .manual_seed(lanes)).to(cuda)
+        done = torch.zeros(lanes, dtype=torch.bool, device=cuda)
+        done[order[:round(share * lanes)]] = True
+    out = _at_every_width(mode, n_terms, prob, done)
+    first = out[min(out)]
+    assert bool(torch.isfinite(first[0]).all())
+    for warps, (price, rows) in out.items():
+        assert torch.equal(price, first[0]), warps
+        assert torch.equal(rows, first[1]), warps
+    if done is not None:
+        assert bool((first[0][done] == -12345.0).all())
+
+
+@pytest.mark.parametrize("kernel", list(MASKED))
+def test_k2_k3_count_each_launch_once_at_every_width(cuda, kernel):
+    """Each bound launch adds one to its ``LAUNCHES`` key at every width,
+    and the rule's own pick (no width given) as well."""
+    mode, dt, n_terms = MASKED[kernel]
+    key = loss_kernel._ENTRIES[mode, dt][2]
+    spots, strikes, mats, call, mkt, x = _edge_problem(15, 15, 31, dt, cuda)
+    params = transform(x).contiguous()
+    price = torch.empty((15, 15), dtype=dt, device=cuda)
+    rows = torch.empty((15, 13) if mode == "loss" else (15, 15, 13),
+                       dtype=dt, device=cuda)
+    bind = (loss_kernel.bind_rows_value_and_grad if mode == "loss"
+            else loss_kernel.bind_rows_jacobian)
+    launch = bind(params, spots, 0.03, strikes, mats, call, mkt, n_terms,
+                  10.0, 0.0, None, price, rows)
+    for warps in (*loss_kernel.WARPS[loss_kernel._ENTRIES[mode, dt][0]],
+                  None):
+        before = dict(loss_kernel.LAUNCHES)
+        launch(warps=warps)
+        after = dict(loss_kernel.LAUNCHES)
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == key) for k in after}
+    torch.cuda.synchronize()
+
+
+def test_k2_slots_and_rule_on_card(cuda):
+    """The resident lanes at each width fall as the blocks widen; 15 lanes
+    take the widest width, and one lane more than every width holds takes
+    the narrowest, as does a launch that fills the card."""
+    for symbol in ("cos_vg_f32", "cos_vg_f64"):
+        table = loss_kernel.slots(symbol, 15, 64, cuda)
+        widths = sorted(table)
+        assert tuple(widths) == loss_kernel.WARPS[symbol]
+        assert all(table[a] > table[b] > 0 for a, b in zip(widths,
+                                                           widths[1:]))
+        assert loss_kernel.launch_warps(15, table) == widths[-1]
+        assert loss_kernel.launch_warps(max(table.values()) + 1,
+                                        table) == widths[0]
 
 
 def _no_dropout_copy(model, device):
